@@ -4,11 +4,12 @@ Runs the measure-and-cache tuner (plan/autotune.py) for each matrix config,
 then times tuned vs default side by side and emits one JSON row per config:
   {"config", "n", "default_ms", "tuned_ms", "speedup", "knobs"}
 
-The tuner's winners persist in autotune_cache.json (repo root), so later
-runs -- including NttConfig(tune=True) users and bench.py -- get them for
-free.  This is the TPU analogue of the reference generating its parameter
-headers from the Fugaku tuning corpus (reference
-tests/bench-transpose.cpp:105-499, README.md:26-27).
+The tuner's winners persist in autotune_cache.json (repo root; GPU timings
+only), so later runs -- including NttConfig(tune=True) users and bench.py --
+get them for free.  This is the analogue of the reference generating its
+parameter headers from the Fugaku tuning corpus (reference
+tests/bench-transpose.cpp:105-499, README.md:26-27).  Each config runs in
+its own process, one after another; the parent never opens the GPU.
 
 Usage: python benchmarks/bench_autotune.py [--quick] [--force]
 """
@@ -19,7 +20,6 @@ import sys
 
 sys.path.insert(0, ".")
 
-import jax
 import numpy as np
 
 from benchmarks.common import chain_time_ms, emit, log
@@ -55,38 +55,22 @@ QUICK = {"sixstep-2p17-flagship"}
 
 
 def run_config(name: str, force: bool) -> None:
-    """Tune one config, then A/B it in a FRESH child process: the tuner's
-    winner-verification readback degrades this process's dispatch path
-    (PERF_NOTES.md round 2), so the comparison re-execs with --ab (cache
-    hit, clean state)."""
+    """Tune one config (in this process), then time tuned vs default."""
+    from sventt_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    import jax
+
+    from sventt_tpu.utils.device import gpu_card_info, require_gpu
+
+    require_gpu()
+    card = gpu_card_info().splitlines()[0]
     rng = np.random.default_rng(0)
     [(name, log2n, N, g, engine, modmul)] = [c for c in CONFIGS if c[0] == name]
     n = 1 << log2n
     base = NttConfig(N, g, n, engine=engine, modmul=modmul)
-    if "--ab" not in sys.argv:
-        import os
-        import subprocess
-        import tempfile
-
-        from sventt_tpu.plan import autotune
-
-        if autotune._backend() != "tpu" and autotune.CACHE_ENV not in os.environ:
-            # tune() refuses to persist non-tpu timings into the
-            # repo-shipped cache; give the parent/child A/B pair its own
-            # cache file so the child still gets a cache HIT (a re-search
-            # in the child would re-run winner verification's D2H readback
-            # -- the contaminated state the re-exec exists to avoid)
-            fd, tmp = tempfile.mkstemp(prefix="sventt_tune_", suffix=".json")
-            os.close(fd)
-            os.environ[autotune.CACHE_ENV] = tmp
-        log(f"bench_autotune: tuning {name} ...")
-        tune(base, force=force)  # populate the cache (clean-state search)
-        sys.exit(
-            subprocess.call(
-                [sys.executable, __file__, "--config", name, "--ab"]
-            )
-        )
-    tuned_cfg = tune(base)  # cache hit
+    log(f"bench_autotune: tuning {name} ...")
+    tuned_cfg = tune(base, force=force)
 
     x = jax.device_put(u64_from_numpy(rng.integers(0, N, n, dtype=np.uint64)))
     ntt_d = NTT(base, enable_inverse=False)
@@ -101,10 +85,11 @@ def run_config(name: str, force: bool) -> None:
         {
             "config": name,
             "n": n,
-            "default_ms": round(ms_d, 4),
-            "tuned_ms": round(ms_t, 4),
-            "speedup": round(ms_d / ms_t, 4),
+            "default_ms": ms_d,
+            "tuned_ms": ms_t,
+            "speedup": ms_d / ms_t,
             "knobs": {k: getattr(tuned_cfg, k) for k in KNOB_FIELDS},
+            "card": card,
         }
     )
 

@@ -3,32 +3,23 @@
 The analogue of the reference's combined test+benchmark binaries
 (reference tests/bench-ntt.cpp + tests/ntt-tests/*.hpp, SURVEY.md 2.2):
 every configuration is timed AND verified in the same run -- bit-exactly
-against the native golden oracle at every size (O(m log m) C++), falling
-back to DFT-definition spot checks (X[0] = sum, X[1] = alternating sum)
-plus forward/inverse round trip only if no compiler is available.
+against the native golden oracle at every size (O(m log m) C++), plus the
+forward/inverse round trip.  Each config runs in its own process, one after
+another; the parent never opens the GPU.  A config that finds no GPU fails.
 
-Emits one JSON line per config:
+Emits one JSON line per config and direction:
   {"config", "n", "engine", "modmul", "direction", "ms", "gbutterfly_s",
-   "verified"}
+   "verified", "card"}
 
 Usage: python benchmarks/bench_ntt.py [--quick]
 """
 
 from __future__ import annotations
 
-import os
 import sys
 
 sys.path.insert(0, ".")
 
-# Persistent XLA compilation cache (set before jax reads its config): each
-# per-config subprocess re-compiles its program in seconds, not minutes.
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.expanduser("~/.cache/sventt_tpu/xla-cache"),
-)
-
-import jax
 import numpy as np
 
 from benchmarks.common import chain_time_ms, emit, log
@@ -64,17 +55,13 @@ def verify(ntt: NTT, x: np.ndarray, fwd_dev: U64) -> bool:
     n = ntt.get_m()
     N = ntt.config.modulus
     fwd = u64_to_numpy(ntt.fc.normalize(fwd_dev))
-    if native.available():
-        # Full bit-exact check at EVERY size: the native oracle is
-        # O(m log m) C++ (a few seconds at 2^24).
-        want = native.golden_forward(x, N, ntt.config.generator)
-        if not (fwd == want).all():
-            return False
-    else:
-        s = int(x.astype(object).sum() % N)
-        alt = int((x[0::2].astype(object).sum() - x[1::2].astype(object).sum()) % N)
-        if int(fwd[0]) != s or int(fwd[1]) != alt:
-            return False
+    # Full bit-exact check at EVERY size: the native oracle is O(m log m)
+    # C++ with OpenMP (seconds at 2^24).
+    want = native.golden_forward(x, N, ntt.config.generator)
+    if want is None:
+        raise RuntimeError("the native oracle is not available")
+    if not (fwd == want).all():
+        return False
     if ntt._inv is not None:
         back = ntt.inverse_numpy(fwd)
         return bool((back == x).all())
@@ -82,9 +69,17 @@ def verify(ntt: NTT, x: np.ndarray, fwd_dev: U64) -> bool:
 
 
 def run_config(name: str) -> None:
-    """Time-then-verify one config (run in its own process so device and
-    compile state is per-config; utils/truetime.py chains are readback-
-    forced, so ordering vs verification no longer matters for truth)."""
+    """Time-then-verify one config (run in its own process, so device
+    memory and compile state are per-config)."""
+    from sventt_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    import jax
+
+    from sventt_tpu.utils.device import gpu_card_info, require_gpu
+
+    require_gpu()
+    card = gpu_card_info().splitlines()[0]
     rng = np.random.default_rng(0)
     [(name, log2n, N, g, engine, modmul)] = [c for c in CONFIGS if c[0] == name]
     n = 1 << log2n
@@ -118,6 +113,7 @@ def run_config(name: str) -> None:
                 "ms": round(ms, 4),
                 "gbutterfly_s": round(bfly / ms / 1e6, 3),
                 "verified": ok,
+                "card": card,
             }
         )
 

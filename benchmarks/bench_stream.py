@@ -2,12 +2,12 @@
 
 The analogue of the reference's bench-stream-cmg NUMA study (reference
 tests/bench-stream-cmg.cpp: reduce/memset/memcpy between CMG pairs): here
-HBM copy/reduce bandwidth on one chip, and all-to-all bandwidth over the
-mesh (ICI on real multi-chip hardware, host simulation on the CPU backend)
--- the transport the distributed six-step transpose rides.
+device-memory copy/reduce bandwidth on one GPU, and all-to-all bandwidth
+over the mesh (NVLink between GPUs) -- the transport the distributed
+six-step transpose rides.  Fails without a GPU.
 
 Emits one JSON line per point:
-  {"kind": "stream_copy"|"stream_reduce"|"all_to_all", "regime": "vmem"|"hbm", ...}
+  {"kind": "stream_copy"|"stream_reduce"|"all_to_all", "regime": "l2"|"hbm", ...}
 
 Usage: python benchmarks/bench_stream.py [--quick]
 """
@@ -18,30 +18,29 @@ import sys
 
 sys.path.insert(0, ".")
 
-import jax
-import jax.numpy as jnp
-import numpy as np
-from jax.sharding import NamedSharding, PartitionSpec as P
-
 from benchmarks.common import chain_time_ms, emit, log
+from sventt_tpu.utils.compile_cache import enable_compile_cache
+
+#: Bytes a chained loop over a buffer may keep in the GPU's L2 cache (an
+#: H100 has 50 MB): a copy of at most this many bytes (read + write) can be
+#: served from L2 rather than device memory.
+L2_BYTES = 50 * 10**6
 
 
 def _regime(nbytes: int) -> str:
-    """Which memory tier a chained loop over this buffer actually streams.
-
-    Round-4 ground truth (PERF_NOTES.md): buffers up to ~64 MB stay
-    VMEM-resident across fori_loop iterations (measured 5.6 TB/s at 64 MB
-    vs 654 GB/s at 256 MB on the v5e), so small 'stream' numbers are VMEM
-    bandwidth, not HBM."""
-    if nbytes <= (1 << 26):
-        return "vmem"
-    if nbytes >= (1 << 28):
+    """Which memory tier a chained copy over this buffer streams."""
+    if 2 * nbytes <= L2_BYTES:
+        return "l2"
+    if nbytes >= 4 * L2_BYTES:
         return "hbm"
     return "transitional"
 
 
 def bench_hbm(quick: bool) -> None:
-    sizes = [1 << 24, 1 << 26] if quick else [1 << 22, 1 << 24, 1 << 26]
+    import jax
+    import jax.numpy as jnp
+
+    sizes = [1 << 24, 1 << 26] if quick else [1 << 22, 1 << 24, 1 << 26, 1 << 28]
     for n in sizes:  # uint32 elements
         x = jax.device_put(jnp.ones((n,), jnp.uint32))
 
@@ -74,6 +73,10 @@ def bench_hbm(quick: bool) -> None:
 
 
 def bench_all_to_all(quick: bool) -> None:
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
     devices = jax.devices()
     if len(devices) < 2:
         log("bench_stream: single device, skipping all-to-all")
@@ -116,6 +119,11 @@ def bench_all_to_all(quick: bool) -> None:
 
 
 def main() -> None:
+    enable_compile_cache()
+    from sventt_tpu.utils.device import gpu_card_info, require_gpu
+
+    require_gpu()
+    log(f"bench_stream: card {gpu_card_info()}")
     quick = "--quick" in sys.argv
     bench_hbm(quick)
     bench_all_to_all(quick)

@@ -1,23 +1,18 @@
-"""Transpose strategy benchmark grid with built-in verification.
+"""Transpose benchmark with built-in verification.
 
-The analogue of the reference's bench-transpose autotuning corpus
-(reference tests/bench-transpose.cpp:105-499: every strategy x block size x
-shape, verified by inverse-transpose after timing).  Results feed the
-strategy choice in ops/transpose.py.
-
-Both strategies move what the transform paths actually move: the U64
-LIMB PAIR (two u32 planes).  "xla" is two jnp.swapaxes; "pallas" is the
-single pair-kernel (ops/transpose.py _transpose_pallas_pair: both planes
-per grid step, double-buffered block DMAs), swept over square AND
-rectangular tiles.
+The analogue of the reference's bench-transpose corpus (reference
+tests/bench-transpose.cpp:105-499: every shape, verified by the inverse
+transpose after timing), for the one transpose the transform paths use:
+XLA's own, on the U64 LIMB PAIR (two u32 planes).
 
 Timing via utils/truetime (single-dispatch fori chains, forced readback):
 each chain iteration is transpose -> barrier -> transpose back -> barrier,
 with `optimization_barrier` keeping both transposes materialized (a fused
 T(T(x)) would be optimized to identity).  Verification is a second pass.
+Fails without a GPU.
 
-Emits one JSON line per point:
-  {"strategy", "rows", "cols", "block", "ms", "gbps", "verified"}
+Emits one JSON line per shape:
+  {"rows", "cols", "ms", "gbps", "verified", "card"}
 (gbps charges read+write of both 4-byte planes.)
 
 Usage: python benchmarks/bench_transpose.py [--quick]
@@ -29,112 +24,61 @@ import sys
 
 sys.path.insert(0, ".")
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 
-from benchmarks.common import emit, log
+from benchmarks.common import emit
 from sventt_tpu.field.limb import U64
-from sventt_tpu.ops.transpose import _transpose_pallas_pair, transpose_xla
+from sventt_tpu.ops.transpose import transpose_xla
+from sventt_tpu.utils.compile_cache import enable_compile_cache
 
-#: Square, moderately skewed, and the 2^24 six-step row-matrix shapes
-#: (256 x 65536 measured at 64 GB/s vs 179 GB/s square in round 1 --
-#: the skew penalty that motivated the transpose-free mid-axis schedule).
+#: Square, moderately skewed, and the 2^24 six-step row-matrix shapes.
 SHAPES = [
     (1024, 1024), (4096, 4096), (256, 16384), (16384, 256),
     (256, 65536), (65536, 256),
 ]
-#: (br, bc) tiles: squares plus skew-friendly rectangles (a 256 x 65536
-#: array under square 256-tiles makes a 1 x 256 grid -- no row
-#: parallelism for the output DMA; wide/flat tiles rebalance it).
-BLOCKS = [
-    (128, 128), (256, 256), (512, 512),
-    (8, 512), (8, 1024), (256, 1024), (1024, 256), (64, 2048),
-]
 
 
-def _alt_chain_ms(transpose_one, x: U64) -> float:
-    """Two U64 transposes per chain iteration, barrier-separated.
+def _alt_chain_ms(x: U64) -> float:
+    """Per-transpose ms of the limb pair, two transposes per iteration,
+    barrier-separated, so the carry keeps its shape."""
+    import jax
+    import jax.numpy as jnp
 
-    ``transpose_one`` maps (r, c) -> (c, r); applying it twice restores the
-    carry shape for the fori chain.  `optimization_barrier` after each
-    transpose (+1 to touch the data) stops XLA from fusing T(T(x)) into an
-    identity.  Returns truthful ms per SINGLE pair transpose.
-    """
     from sventt_tpu.utils.truetime import time_chained
 
     def once(v: U64) -> U64:
-        h, l = transpose_one(v)
         return U64(
-            jax.lax.optimization_barrier(h + jnp.uint32(1)),
-            jax.lax.optimization_barrier(l + jnp.uint32(1)),
+            jax.lax.optimization_barrier(transpose_xla(v.hi) + jnp.uint32(1)),
+            jax.lax.optimization_barrier(transpose_xla(v.lo) + jnp.uint32(1)),
         )
 
-    def step(v):
-        return once(once(v))
-
-    return time_chained(step, x, seconds=1.0, reps=2).ms / 2
+    return time_chained(lambda v: once(once(v)), x, seconds=1.0, reps=2).ms / 2
 
 
 def main() -> None:
+    enable_compile_cache()
+    import jax
+    import jax.numpy as jnp
+
+    from sventt_tpu.utils.device import gpu_card_info, require_gpu
+
+    require_gpu()
+    card = gpu_card_info().splitlines()[0]
     quick = "--quick" in sys.argv
-    shapes = SHAPES[:2] if quick else SHAPES
     rng = np.random.default_rng(0)
-
-    # Pass 1: time every point.  No readbacks anywhere in this pass.
-    inputs: dict[tuple[int, int], U64] = {}
-    rows: list[dict] = []
-    for r, c in shapes:
+    for r, c in SHAPES[:2] if quick else SHAPES:
         x = U64(
-            jax.device_put(
-                jnp.asarray(rng.integers(0, 1 << 32, (r, c), dtype=np.uint32))
-            ),
-            jax.device_put(
-                jnp.asarray(rng.integers(0, 1 << 32, (r, c), dtype=np.uint32))
-            ),
-        )
-        inputs[(r, c)] = x
-
-        ms = _alt_chain_ms(
-            lambda v: (transpose_xla(v.hi), transpose_xla(v.lo)), x
-        )
-        rows.append({"strategy": "xla", "rows": r, "cols": c, "block": None, "ms": ms})
-
-        for br, bc in BLOCKS:
-            if r % br or c % bc:
-                continue
-            try:
-                ms = _alt_chain_ms(
-                    lambda v, br=br, bc=bc: _transpose_pallas_pair(
-                        v.hi, v.lo, br, bc
-                    ),
-                    x,
+            *(
+                jax.device_put(
+                    jnp.asarray(rng.integers(0, 1 << 32, (r, c), dtype=np.uint32))
                 )
-                rows.append(
-                    {
-                        "strategy": "pallas", "rows": r, "cols": c,
-                        "block": f"{br}x{bc}", "ms": ms,
-                    }
-                )
-            except Exception as e:  # noqa: BLE001 -- strategy may not compile
-                log(f"pallas {r}x{c} block {br}x{bc}: {str(e)[:120]}")
-
-    # Pass 2: clocks have stopped; verify (first D2H happens here) and emit.
-    wants: dict[tuple[int, int], np.ndarray] = {}
-    for row in rows:
-        r, c = row["rows"], row["cols"]
-        x = inputs[(r, c)]
-        if (r, c) not in wants:
-            wants[(r, c)] = np.asarray(x.hi).T
-        if row["strategy"] == "xla":
-            out = jax.jit(transpose_xla)(x.hi)
-        else:
-            br, bc = (int(v) for v in row["block"].split("x"))
-            out = _transpose_pallas_pair(x.hi, x.lo, br, bc)[0]
-        ok = bool((np.asarray(out) == wants[(r, c)]).all())
-        ms = row.pop("ms")
+                for _ in range(2)
+            )
+        )
+        ms = _alt_chain_ms(x)
+        ok = bool((np.asarray(jax.jit(transpose_xla)(x.hi)) == np.asarray(x.hi).T).all())
         gbps = r * c * 8 * 2 / (ms / 1e3) / 1e9
-        emit({**row, "ms": round(ms, 4), "gbps": round(gbps, 1), "verified": ok})
+        emit({"rows": r, "cols": c, "ms": ms, "gbps": gbps, "verified": ok, "card": card})
 
 
 if __name__ == "__main__":

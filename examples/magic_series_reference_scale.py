@@ -20,7 +20,7 @@ at reference scale is the strongest end-to-end proof the framework offers.
 
 Usage: python examples/magic_series_reference_scale.py [m ...]
   (default: 100 101; m = 100 takes a few minutes host-side per modulus
-   on CPU, much less with the TPU convolver)
+   on CPU, much less with a GPU convolver)
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
-"""sventt_tpu: a TPU-native Number Theoretic Transform framework.
+"""sventt_tpu: a JAX Number Theoretic Transform framework for GPUs.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the
-Terminus-IMRC/sve-ntt reference library (see SURVEY.md): forward/inverse NTTs
-over 60-64-bit prime fields, composed from radix-2/4/8 butterfly stages into
-iterative, four-step, six-step and blocked six-step transforms, with
-multi-chip row-sharded transforms over a `jax.sharding.Mesh` whose six-step
-transpose rides an ICI all-to-all.
+A JAX/XLA implementation with the capabilities of the Terminus-IMRC/sve-ntt
+reference library (see SURVEY.md): forward/inverse NTTs over 60-64-bit prime
+fields, composed from radix-2 butterfly stages or int8 matrix products into
+iterative, six-step and blocked six-step transforms, with multi-device
+row-sharded transforms over a `jax.sharding.Mesh` whose six-step transpose is
+an all-to-all collective.
 
 Layout of the package (reference layer map in SURVEY.md section 1):
 
@@ -13,11 +13,11 @@ Layout of the package (reference layer map in SURVEY.md section 1):
                  and u64-as-2xu32 limb arithmetic (Montgomery/Shoup modmul,
                  butterflies).
 * ``ops``      - L2/L3: butterfly stage plans, the pure-jnp NTT engine, the
-                 fused Pallas inner-NTT kernels, transposes, pointwise ops.
+                 int8 matrix NTT engine, transposes, pointwise ops.
 * ``plan``     - L4: NttConfig + planner + the public ``NTT`` wrapper that
                  owns device twiddle tables (the analogue of
                  reference include/sventt/wrapper.hpp).
-* ``parallel`` - the multi-chip layer (absent in the reference): meshes,
+* ``parallel`` - the multi-device layer (absent in the reference): meshes,
                  shard_map six-step, all-to-all transpose.
 * ``apps``     - L5 applications: magic-series convolution pipeline, Kinnaes
                  closed form.

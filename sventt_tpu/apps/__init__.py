@@ -1,6 +1,6 @@
 """L5 applications: NTT convolution pipelines and the magic-series counters.
 
-TPU-native equivalents of the reference's examples/ tree (SURVEY.md
+Equivalents of the reference's examples/ tree (SURVEY.md
 section 2.3): the q-series generators and chunked power-series division of
 examples/magic-series/gaussian-polynomial.hpp, and the NTT-free Kinnaes
 closed form of examples/magic-series-kinnaes/kinnaes.hpp, which serves as an

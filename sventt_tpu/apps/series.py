@@ -1,6 +1,6 @@
 """q-series generators and the magic-series count via NTT convolution.
 
-TPU-native re-design of reference examples/magic-series/ (SURVEY.md 2.3):
+Re-design of reference examples/magic-series/ (SURVEY.md 2.3):
 
 * ``q_pochhammer_coeffs``       <- calculate_q_pochhammer
   (gaussian-polynomial.hpp:19-45): coefficients of (q;q)_k.

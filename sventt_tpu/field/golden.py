@@ -13,9 +13,9 @@ reference's ``NTTReference`` (reference tests/ntt-reference.hpp:11-84):
 * All values are canonical, in ``[0, N)``.
 
 Implemented with exact Python integers (the analogue of the reference's
-``unsigned __int128`` arithmetic).  A faster C++ path is provided by
-``sventt_tpu.runtime`` when the native extension is built; this module is the
-always-available fallback and the primary test oracle.
+``unsigned __int128`` arithmetic).  The C++ oracle in ``sventt_tpu.native``
+computes the same transforms at native speed; this module is the semantic
+source of truth that both are tested against.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
-"""64-bit modular arithmetic as paired uint32 limbs for the TPU VPU.
+"""64-bit modular arithmetic as paired uint32 limbs.
 
-TPUs have no 64-bit integer multiply, so every 64-bit field element is carried
-as a pair of uint32 arrays ``U64(hi, lo)`` and products are assembled from
-16-bit partial products (4 native uint32 multiplies per 32x32->64).  This
-module is the TPU-native re-design of the reference's modmul engines:
+Every 64-bit field element is carried as a pair of uint32 arrays
+``U64(hi, lo)`` and products are assembled from 16-bit partial products (4
+native uint32 multiplies per 32x32->64), so the arithmetic needs nothing
+wider than 32-bit integer lanes.  Whether a native uint64 path is faster on
+the GPU is an open question (ROADMAP.md queue 1).  This module re-designs
+the reference's modmul engines:
 
 * ``mont_mul`` / ``mont_mul_full``  <-  PAdic64 Montgomery ("p-adic") multiply
   (reference include/sventt/modmul/scalar/p-adic-64.hpp:35-45 and
@@ -18,8 +20,7 @@ module is the TPU-native re-design of the reference's modmul engines:
   that folds the 1/m inverse scaling into the final layer (:180-223).
 
 Everything here is shape-polymorphic pure ``jnp`` and runs identically under
-XLA on CPU/TPU and inside Pallas kernels (it is the body of the Pallas inner
-NTT in sventt_tpu/ops/ntt_pallas.py).
+XLA on any backend.
 
 Range discipline (SURVEY.md section 4.2):  with ``lazy=True`` (requires
 ``bit_width(N) <= 62``) values live in the redundant range [0, 2N) and the
@@ -44,8 +45,8 @@ _U32 = jnp.uint32
 class U64(NamedTuple):
     """A 64-bit unsigned integer as two uint32 limb arrays (hi, lo).
 
-    Registered as a pytree via NamedTuple, so U64 values flow through jit,
-    shard_map and pallas_call transparently.
+    Registered as a pytree via NamedTuple, so U64 values flow through jit
+    and shard_map transparently.
     """
 
     hi: jnp.ndarray
@@ -89,11 +90,11 @@ def u64_to_numpy(x: U64) -> np.ndarray:
 
 
 def mul32_wide(a, b) -> U64:
-    """32x32 -> 64 full product via 16-bit partials (4 VPU multiplies).
+    """32x32 -> 64 full product via 16-bit partials (4 u32 multiplies).
 
-    The TPU analogue of SVE's svmul/svmulh pair
+    The analogue of SVE's svmul/svmulh pair
     (reference modmul/sve/p-adic-64.hpp:76-95 uses hardware 64-bit svmulh;
-    the TPU VPU is 32-bit so we assemble from u16 halves).
+    here it is assembled from u16 halves in 32-bit lanes).
     """
     a_lo = a & _U32(0xFFFF)
     a_hi = a >> _U32(16)
@@ -172,7 +173,7 @@ def u64_select(pred, a: U64, b: U64) -> U64:
 
 def u64_min(a: U64, b: U64) -> U64:
     """Unsigned 64-bit minimum -- the branchless lazy-reduction workhorse
-    (the TPU analogue of the reference's svmin trick,
+    (the analogue of the reference's svmin trick,
     modmul/sve/p-adic-64.hpp:101-115)."""
     return u64_select(u64_lt(a, b), a, b)
 
@@ -234,8 +235,7 @@ def u64_const_like(value: int, like: U64) -> U64:
 # modulus 58*2^56 + 1) or N = 2^64 - c*2^s + 1 (Solinas form, e.g. the
 # flagship 2^64 - 1827*2^31 + 1 and Goldilocks 2^64 - 2^32 + 1).  Products
 # with N then reduce to one small-constant multiply plus shifts -- cutting
-# the 16-multiply u64_mulhi(q, N) of Montgomery reduction (PERF_NOTES.md
-# lists the multiply-chain VMEM traffic as the governing bound) to ~4.
+# the 16-multiply u64_mulhi(q, N) of Montgomery reduction to ~4.
 # Detection is automatic in FieldConsts.from_modulus; the generic path
 # remains for arbitrary moduli.
 # ---------------------------------------------------------------------------
@@ -418,7 +418,7 @@ def u64_reduce128_sparse_high(hi: U64, lo: U64, c: int, s: int) -> U64:
 class FieldConsts:
     """All compile-time constants the device kernels need for one modulus.
 
-    The TPU analogue of binding ``Modulus<N, g>`` into a modmul engine type
+    The analogue of binding ``Modulus<N, g>`` into a modmul engine type
     (reference modmul/scalar/p-adic-64.hpp:11-14).  Constructed on the host,
     every field is a Python int baked into the traced program as a literal.
     """
@@ -456,9 +456,8 @@ class FieldConsts:
                 f"modulus has {mod.bit_width} bits"
             )
         if modmul == "auto":
-            # Montgomery by default: Shoup saves ~16% at HBM-scale n (2^24)
-            # but loses the XLA VMEM-resident fast path at mid sizes; until
-            # the autotuner picks per-config, predictable wins.
+            # Montgomery by default; the size-dependent choice lives in
+            # plan/wrapper.py _resolve_modmul.
             modmul = "montgomery"
         if modmul not in ("montgomery", "shoup", "solinas"):
             raise ValueError(f"unknown modmul engine {modmul!r}")

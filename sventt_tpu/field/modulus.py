@@ -1,6 +1,6 @@
 """Host-side prime-field arithmetic over Z/NZ for 60-64-bit prime moduli.
 
-TPU-native re-design of the reference's compile-time ``Modulus<N, g>``
+Re-design of the reference's compile-time ``Modulus<N, g>``
 (reference: include/sventt/modulus.hpp:14-133).  The reference computes all
 field constants with ``constexpr`` C++ over ``unsigned __int128``; here the
 same role is played by plain Python integers at *plan time* (before tracing),
@@ -233,7 +233,7 @@ class Modulus:
 def find_generator(modulus: int) -> int:
     """Find the smallest primitive root of a prime modulus.
 
-    TPU-native analogue of the reference's sympy parameter generator
+    Analogue of the reference's sympy parameter generator
     (reference examples/magic-series-kinnaes/generate-parameters.py), using
     pure Python (no sympy dependency).
     """

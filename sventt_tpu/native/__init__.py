@@ -1,11 +1,12 @@
 """Native host runtime: C++ golden oracle and field helpers via ctypes.
 
-The compute path of the framework is JAX/XLA/Pallas; this package carries
+The compute path of the framework is JAX/XLA; this package carries
 the host-side native components (the role the reference's C++ host code
 plays outside the SVE kernels): an exact golden NTT oracle at native speed,
-naive convolution, and table-companion helpers.  Built on first use with the
-system compiler; everything degrades to the pure-Python golden model if no
-compiler is available (``available()`` reports which).
+naive convolution, and table-companion helpers.  Built on first use from the
+committed sources with the system C++ compiler (OpenMP when available) into
+the git-ignored ``libsventt_host.so``; ``available()`` reports whether that
+worked, and every entry point returns None when it did not.
 """
 
 from __future__ import annotations
@@ -28,17 +29,19 @@ _tried = False
 
 
 def _build() -> bool:
+    """Compile the library, with OpenMP where the compiler has it."""
     for cc in ("c++", "g++"):
-        try:
-            r = subprocess.run(
-                [cc, "-O3", "-shared", "-fPIC", *_SRCS, "-o", _LIB],
-                capture_output=True,
-                timeout=120,
-            )
+        for extra in (["-fopenmp"], []):
+            try:
+                r = subprocess.run(
+                    [cc, "-O3", *extra, "-shared", "-fPIC", *_SRCS, "-o", _LIB],
+                    capture_output=True,
+                    timeout=120,
+                )
+            except (OSError, subprocess.TimeoutExpired):
+                break
             if r.returncode == 0:
                 return True
-        except (OSError, subprocess.TimeoutExpired):
-            continue
     return False
 
 
@@ -80,6 +83,8 @@ def _load() -> ctypes.CDLL | None:
         lib.sventt_golden_forward.argtypes = [p64, u64, u64, u64]
         lib.sventt_golden_inverse.restype = ctypes.c_int
         lib.sventt_golden_inverse.argtypes = [p64, u64, u64, u64]
+        lib.sventt_pointwise_mulmod.restype = ctypes.c_int
+        lib.sventt_pointwise_mulmod.argtypes = [p64, p64, p64, u64, u64]
         lib.sventt_cyclic_convolve_naive.restype = ctypes.c_int
         lib.sventt_cyclic_convolve_naive.argtypes = [p64, p64, p64, u64, u64]
         lib.sventt_montgomery_inverse.restype = u64
@@ -125,6 +130,26 @@ def golden_forward(data, modulus: int, generator: int):
     )
     if rc != 0:
         raise ValueError("golden_forward failed (m must be a power of two)")
+    return out
+
+
+def pointwise_mul(a, b, modulus: int):
+    """Native elementwise a*b mod N of canonical uint64 residues, or None."""
+    import numpy as np
+
+    lib = _load()
+    if lib is None:
+        return None
+    p64 = ctypes.POINTER(ctypes.c_uint64)
+    a = np.ascontiguousarray(np.asarray(a, dtype=np.uint64))
+    b = np.ascontiguousarray(np.asarray(b, dtype=np.uint64))
+    if a.shape != b.shape or a.ndim != 1:
+        raise ValueError("pointwise_mul needs two 1-D arrays of one length")
+    out = np.empty_like(a)
+    lib.sventt_pointwise_mulmod(
+        a.ctypes.data_as(p64), b.ctypes.data_as(p64), out.ctypes.data_as(p64),
+        a.shape[0], modulus,
+    )
     return out
 
 

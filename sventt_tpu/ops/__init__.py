@@ -1,4 +1,4 @@
-"""Compute ops: butterfly stages, NTT engines (jnp + Pallas), transposes."""
+"""Compute ops: butterfly stages, NTT engines (jnp + int8 matrix), transposes."""
 
 from .ntt_jnp import ntt_forward, ntt_inverse, pointwise_mont_mul, twiddle_rows
 from .twiddle import (

@@ -1,13 +1,12 @@
 """Pure-jnp NTT engine: leading-axis butterflies, runs on any XLA backend.
 
-This is the framework's portable compute path (L2/L3 of SURVEY.md section 1)
-and the semantic model for the fused Pallas kernels.  Layout rule: the
-**transform axis is the leading axis**, all trailing axes are batch.  On TPU
-this makes every butterfly at every stage an aligned (8,128)-tile operation
--- the TPU answer to the reference's in-register shuffle zoo
+This is the framework's butterfly compute path (L2/L3 of SURVEY.md
+section 1).  Layout rule: the **transform axis is the leading axis**, all
+trailing axes are batch, so every butterfly at every stage is a contiguous
+slab operation -- the answer to the reference's in-register shuffle zoo
 (reference include/sventt/transposition/sve/common.hpp): instead of
 deinterleaving sub-vector strides in registers, strides live entirely in the
-un-tiled leading dimension.
+leading dimension.
 
 The butterfly schedule is exactly the golden model's
 (reference tests/ntt-reference.hpp:43-83), so composing these transforms is
@@ -16,10 +15,19 @@ bit-compatible (mod N) with the reference at every decomposition boundary.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..field.limb import U64, FieldConsts
 from .twiddle import ForwardTables, InverseTables, MontPair
+
+
+def _stage_out(x: U64) -> U64:
+    """Materialize a stage's output (an optimization barrier), so the
+    compiler fuses one stage at a time.  Without it XLA's GPU fusion merged
+    the stage chain into fusions that recompute earlier stages: the 2^20
+    forward ran 65x slower (PERF.md, PR 1)."""
+    return U64(*jax.lax.optimization_barrier((x.hi, x.lo)))
 
 
 def _u64_bcast(x: U64, shape) -> U64:
@@ -71,7 +79,7 @@ def ntt_forward(x: U64, tables: ForwardTables, fc: FieldConsts) -> U64:
         x0, x1 = _stage_views(x, m, l)
         w = _bcast_tw(pair, l, nb)
         y0, y1 = fc.butterfly_forward(x0, x1, w.w, w.wp)
-        x = _stage_join(y0, y1, m)
+        x = _stage_out(_stage_join(y0, y1, m))
     return x
 
 
@@ -96,20 +104,19 @@ def ntt_inverse(x: U64, tables: InverseTables, fc: FieldConsts) -> U64:
             y0, y1 = fc.butterfly_inverse_scaled(x0, x1, sc.w, sc.wp, w.w, w.wp)
         else:
             y0, y1 = fc.butterfly_inverse(x0, x1, w.w, w.wp)
-        x = _stage_join(y0, y1, m)
+        x = _stage_out(_stage_join(y0, y1, m))
     return x
 
 
 # -- middle-axis variants: transform along AXIS 1 of (A, m, batch...) --------
 #
 # The six-step row step applied in place on the (columns, rows, batch)
-# layout -- the jnp analogue of ops/ntt_pallas.fused_ntt_mid: a Split node
-# whose row child is a jnp leaf runs here instead of the transpose / leaf /
-# transpose sandwich, eliminating both XLA transposes per level (the
-# reference fuses transposition into its blocked row layers the same way,
-# reference layer/sve/blocked-generic.hpp:138-154).  On XLA (unlike Mosaic)
-# the axis-1 reshape/stack patterns compile to the same clean code as the
-# leading-axis ones.
+# layout: a Split node whose row child is a jnp leaf runs here instead of
+# the transpose / leaf / transpose sandwich, eliminating both transposes per
+# level (the reference fuses transposition into its blocked row layers the
+# same way, reference layer/sve/blocked-generic.hpp:138-154).  XLA compiles
+# the axis-1 reshape/stack patterns to the same code as the leading-axis
+# ones.
 
 
 def _mid_views(x: U64, m: int, l: int):
@@ -147,7 +154,7 @@ def ntt_forward_mid(x: U64, tables: ForwardTables, fc: FieldConsts) -> U64:
         x0, x1 = _mid_views(x, m, l)
         w = _mid_tw(pair, l, nb)
         y0, y1 = fc.butterfly_forward(x0, x1, w.w, w.wp)
-        x = _mid_join(y0, y1, m)
+        x = _stage_out(_mid_join(y0, y1, m))
     return x
 
 
@@ -168,7 +175,7 @@ def ntt_inverse_mid(x: U64, tables: InverseTables, fc: FieldConsts) -> U64:
             y0, y1 = fc.butterfly_inverse_scaled(x0, x1, sc.w, sc.wp, w.w, w.wp)
         else:
             y0, y1 = fc.butterfly_inverse(x0, x1, w.w, w.wp)
-        x = _mid_join(y0, y1, m)
+        x = _stage_out(_mid_join(y0, y1, m))
     return x
 
 

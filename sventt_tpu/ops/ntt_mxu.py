@@ -1,14 +1,14 @@
-"""MXU matrix-NTT engine: small-m NTTs as int8 limb-plane matmuls.
+"""Matrix-NTT engine: small-m NTTs as int8 limb-plane matmuls.
 
-The third leaf engine (next to jnp and pallas): a length-m NTT (m <= MAX_MXU)
-is evaluated as the dense matrix product
+The second leaf engine (next to jnp): a length-m NTT (m <= MAX_MXU) is
+evaluated as the dense matrix product
 
   forward:  X[p] = sum_j  M[p, j] * x[j],   M[p, j] = R64 * omega^(bitrev(p)*j)
   inverse:  x[k] = sum_p  Mi[k, p] * y[p],  Mi[k, p] = R64 * s * omega^(-k*bitrev(p))
 
 (s = m^-1 * scale_extra; R64 = 2^64 mod N -- the Montgomery factor that
 cancels the final REDC), which matches the golden DIF output order /
-DIT input order exactly, so MXU leaves compose freely with every other
+DIT input order exactly, so matrix leaves compose freely with every other
 engine in the plan tree.
 
 Mechanics -- two plane schemes, selected by ``scheme``:
@@ -27,15 +27,18 @@ Mechanics -- two plane schemes, selected by ``scheme``:
   (the exact worst-case |P_t|) that makes each plane non-negative
   before the u32 word accumulation.
   Versus "u7": 64 vs 100 MAC plane-pairs, 15 vs 19 recombination planes,
-  byte-aligned extraction (no bit-straddle shifts) -- the recombination
-  tail dominates the level cost (PERF_NOTES.md round-4 phase breakdown),
-  so this is the round-5 headline lever.
+  byte-aligned extraction (no bit-straddle shifts).
 
-* ``"u7"`` (round 4): NL = 10 unsigned seven-bit planes for both matrix
-  and data; 2*NL-1 = 19 int32 product planes recombine directly.  Kept
-  as the A/B baseline.
+* ``"s8b"``: the s8 digits laid out as one block-banded (15m, 8m) matrix,
+  so ONE int8 matmul against the stacked byte planes yields the 15 output
+  planes directly: 120 instead of 64 m^2 MACs, but 15 instead of 64 int32
+  product planes per point written by the matmul.
 
-Either way the product planes recombine on the VPU into a 6-word 192-bit
+* ``"u7"``: NL = 10 unsigned seven-bit planes for both matrix and data;
+  2*NL-1 = 19 int32 product planes recombine directly.  Kept as the A/B
+  baseline.
+
+Either way the product planes recombine elementwise into a 6-word 192-bit
 value, the top 64 bits fold via 2^128 mod N, and one subtractive
 Montgomery REDC (companion computed from the low 64 bits) lands in
 canonical [0, N).
@@ -48,26 +51,25 @@ exact non-negative integer (< 2^142 at m = 1024); fold + REDC reduce
 any value < 2^192 correctly (REDC needs T_hi < N after the fold -- see
 the Barrett/conditional-subtract step).
 
-MEASURED (round 4, truthful chains, u7 scheme): one 128-point level over
-2^22 points = 0.653 ms all-inclusive (decompose + matmuls + recombine +
-canonicalize), ~1.8x the per-butterfly rate of the tuned jnp engine --
-the first MXU win after rounds 1-2's invalid-timing dismissals.
+Everything is plain XLA: the int8 x int8 -> int32 products are
+``lax.dot_general`` calls, which XLA hands to the GPU's integer tensor-core
+GEMM, and the recombination tail is elementwise code that XLA fuses.  The
+six-step inter-step twiddle multiply is applied as plain ops right before
+the matrix (forward) or right after it (inverse), where XLA fuses it into
+the plane extraction or the recombination.
 
 Reference role: the radix-R throughput kernel
 (reference include/sventt/layer/sve/radix-eight.hpp:95-234) realized on
-the TPU's systolic array instead of vector registers.
+matrix units instead of vector registers.
 """
 
 from __future__ import annotations
 
-import functools
 from dataclasses import dataclass
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..field.limb import (
     U64,
@@ -96,12 +98,20 @@ NL = 10
 NL_S8 = 8
 
 #: Largest matrix-NTT length: the s8 int32 accumulator bound
-#: (8 pairs * m * 2^14 < 2^31) allows up to m = 2048; 1024 fits Mosaic's
-#: scoped-VMEM stack ((8m, m) int8 matrix = 8 MB, int32 product planes
-#: scale with m * block_b) and gives 2^28 a 3-level plan (1024*512*512)
-#: and 2^18-2^20 2-level plans.  The u7 scheme's bound
+#: (8 pairs * m * 2^14 < 2^31) allows up to m = 2048; 1024 keeps the
+#: (8m, m) int8 matrix at 8 MB and gives 2^28 a 3-level plan
+#: (1024*512*512) and 2^18-2^20 2-level plans.  The u7 scheme's bound
 #: (m * NL * 127^2 < 2^31) also holds at 1024.
 MAX_MXU = 1024
+
+#: Plane scheme of the tables the planner builds (see the module docstring).
+SCHEME = "s8b"
+
+
+def max_m(scheme: str | None = None) -> int:
+    """Largest transform length a scheme supports: the banded s8b matrix
+    is 120*m^2 bytes, so it stops at 512 (31.5 MB)."""
+    return 512 if (scheme or SCHEME) == "s8b" else MAX_MXU
 
 #: Largest value representable by 8 balanced base-256 digits:
 #: 127 * (256^8 - 1)/255.  Minimal-magnitude residues r = v or v - N
@@ -125,14 +135,6 @@ def _balanced8(r: int) -> list[int]:
     assert r == 0, "residue outside the 8-digit balanced range"
     return ds
 
-#: Lane-tile width (batch columns per grid step).  Mosaic requires the
-#: trailing block dim be a multiple of 128, so m = 1024 kernels keep 128
-#: and raise the scoped-VMEM limit instead (_compiler_params: the default
-#: 16 MB stack rejects their 23.3 MB of int32 product planes; the chip
-#: has 128 MB of VMEM).
-MXU_BLOCK_B = 128
-
-
 def _mat_dims(scheme: str, m: int) -> tuple[int, int]:
     """(rows, cols) of the stacked matrix operand for one scheme."""
     if scheme == "s8b":
@@ -142,65 +144,51 @@ def _mat_dims(scheme: str, m: int) -> tuple[int, int]:
     return NL * m, m
 
 
-def _compiler_params(m: int, block_b: int, scheme: str = "s8"):
-    mr, mc = _mat_dims(scheme, m)
-    need = mr * mc + 2 * NL_S8 * m * block_b * 4 + 15 * m * block_b * 4
-    if need <= 12 * 2**20:
-        return None
-    return pltpu.CompilerParams(vmem_limit_bytes=100 * 2**20)
-
-
 @dataclass(frozen=True)
 class MxuDirection:
     """Prepared tables for one direction at one length.
 
-    ``planes``: (NP*m, m) int8 -- the stacked digit planes of the DFT
-    matrix in Montgomery-lifted form (NP = 8 balanced signed digits for
-    scheme "s8", NL = 10 unsigned 7-bit planes for "u7").  ``corr``:
-    (1, m) U64, the per-output-row offset-correction constant of the s8
-    scheme (None for u7).  ``c128`` / ``nprime`` / ``modulus``:
-    per-modulus Python-int constants baked into the kernel as literals.
+    ``planes``: the stacked digit planes of the DFT matrix in
+    Montgomery-lifted form: (NP*m, m) int8 with NP = 8 balanced signed
+    digits for scheme "s8" and NL = 10 unsigned 7-bit planes for "u7";
+    the (15m, 8m) banded layout for "s8b".  ``corr``: (m,) U64, the
+    per-output-row offset-correction constant of the s8 schemes (None for
+    u7).  ``c128`` / ``nprime`` / ``modulus``: per-modulus Python-int
+    constants baked into the traced program as literals.
     """
 
     m: int
     inverse: bool
     planes: jnp.ndarray
-    #: (m, NP*m) pre-transposed copy for the lane orientation: the lane
-    #: dot contracts the last axis of both operands otherwise, which
-    #: Mosaic executes ~9x slower than a plain matmul (measured 6.3 vs
-    #: 0.69 ms at 2^22).
-    planes_t: jnp.ndarray
     corr: U64 | None
     modulus: int
     c128: int  # 2^128 mod N
     nprime: int  # N^-1 mod 2^64
-    block_b: int = MXU_BLOCK_B
     scheme: str = "s8"
 
 
 jax.tree_util.register_dataclass(
     MxuDirection,
-    data_fields=["planes", "planes_t", "corr"],
-    meta_fields=["m", "inverse", "modulus", "c128", "nprime", "block_b",
-                 "scheme"],
+    data_fields=["planes", "corr"],
+    meta_fields=["m", "inverse", "modulus", "c128", "nprime", "scheme"],
 )
 
 
 def make_mxu_tables(
     mod: Modulus, m: int, *, inverse: bool, scale_extra: int = 1,
-    block_b: int | None = None, scheme: str = "s8",
+    scheme: str | None = None,
 ) -> MxuDirection:
-    """Host-build the limb-plane matrix for one direction."""
+    """Host-build the limb-plane matrix for one direction (``scheme``
+    None = the module default ``SCHEME``)."""
+    scheme = scheme or SCHEME
     from ..field.golden import bitreverse_permutation
 
-    if m < 2 or m & (m - 1) or m > MAX_MXU:
-        raise ValueError(f"mxu engine supports power-of-two m in [2, {MAX_MXU}]")
     if scheme not in ("s8", "s8b", "u7"):
         raise ValueError(f"unknown mxu plane scheme {scheme!r}")
-    if scheme == "s8b" and m > 512:
-        # the banded (15m, 8m) matrix is 120*m^2 bytes: 126 MB at m=1024
-        # exceeds the chip's VMEM; 512 (31.5 MB) fits under the raised limit
-        raise ValueError("scheme 's8b' supports m <= 512")
+    if m < 2 or m & (m - 1) or m > max_m(scheme):
+        raise ValueError(
+            f"mxu scheme {scheme!r} supports power-of-two m in [2, {max_m(scheme)}]"
+        )
     N = mod.modulus
     perm = bitreverse_permutation(m)
     r64 = (1 << 64) % N
@@ -244,9 +232,8 @@ def make_mxu_tables(
             # holds digit plane d_{t-b} at data-plane column block b, so
             # ONE int8 matmul against the stacked (8m, B) byte planes
             # yields the 15 output planes directly -- the 49 per-point
-            # plane-merge adds of the "s8" VPU tail move onto the MXU
-            # (120 vs 64 m^2 MACs; the matmuls are nearly free while the
-            # merge adds are ~30% of the measured level cost).
+            # plane-merge adds of the "s8" tail move into the matmul
+            # (120 vs 64 m^2 MACs).
             G = np.zeros((15 * m, NL_S8 * m), dtype=np.int8)
             for tt in range(15):
                 for b in range(NL_S8):
@@ -265,11 +252,9 @@ def make_mxu_tables(
             dtype=object,
         )
         corr = U64(
+            jnp.asarray([int(v) >> 32 for v in corr_vals], dtype=jnp.uint32),
             jnp.asarray(
-                [[int(v) >> 32 for v in corr_vals]], dtype=jnp.uint32
-            ),
-            jnp.asarray(
-                [[int(v) & 0xFFFFFFFF for v in corr_vals]], dtype=jnp.uint32
+                [int(v) & 0xFFFFFFFF for v in corr_vals], dtype=jnp.uint32
             ),
         )
     else:
@@ -278,90 +263,85 @@ def make_mxu_tables(
             axis=0,
         )
     return MxuDirection(
-        m, inverse, jnp.asarray(planes_np), jnp.asarray(planes_np.T.copy()),
-        corr, N, pow(2, 128, N), pow(N, -1, 1 << 64),
-        block_b or MXU_BLOCK_B,
-        scheme,
+        m, inverse, jnp.asarray(planes_np), corr, N, pow(2, 128, N),
+        pow(N, -1, 1 << 64), scheme,
     )
 
 
-def _mxu_body(t: MxuDirection, xhv, xlv, mm, corr=None, lane: bool = False):
-    """u32 limb pair + (NP*m, m) i8 matrix -> canonical U64.
+def _mxu_body(t: MxuDirection, xh, xl, axis: int) -> U64:
+    """u32 limb pair -> canonical U64: the length-m transform along ``axis``.
 
-    ``lane=False``: transform along the LEADING axis of (m, BT) tiles
-    (contraction mm @ Xi).  ``lane=True``: transform along the LAST axis
-    of (rows, m) tiles (contraction Xi @ mm^T -- same matrix operand).
-    ``corr``: the s8 per-output-row constant, already broadcast-shaped.
-    The per-point recombination/reduction is the VPU tail measured to
-    dominate the level cost; it is elementwise and orientation-agnostic.
+    The int8 products are ``lax.dot_general`` calls.  Their output is
+    transform-major, (rows, rest...), unless the transform axis is the
+    data's last axis: then the dot contracts that axis and its output
+    (rest..., rows) is already in the data layout.  The elementwise
+    recombination runs in whichever layout the dot produced, and the
+    result moves back to ``axis`` at the end (a no-op for the leading and
+    last axes).
     """
     m = t.m
+    mm = t.planes
+    nd = xh.ndim
+    minor = nd > 1 and axis == nd - 1
     s8 = t.scheme in ("s8", "s8b")
     banded = t.scheme == "s8b"
     np_in = NL_S8 if s8 else NL  # input (data) planes
-    np_mat = NL_S8 if s8 else NL  # stacked matrix plane groups
     n_out = 15 if s8 else 2 * NL - 1
-    planes = [None] * n_out
-    xis = []  # banded: stacked-dot operands
+
+    def dot(X):
+        if minor:
+            return jax.lax.dot_general(
+                X, mm, (((nd - 1,), (1,)), ((), ())),
+                preferred_element_type=jnp.int32,
+            )  # (rest..., rows)
+        return jax.lax.dot_general(
+            mm, X, (((1,), (axis,)), ((), ())),
+            preferred_element_type=jnp.int32,
+        )  # (rows, rest...)
+
+    def split(C, groups: int) -> list:
+        if minor:
+            Cr = C.reshape(C.shape[:-1] + (groups, m))
+            return [Cr[..., k, :] for k in range(groups)]
+        Cr = C.reshape((groups, m) + C.shape[1:])
+        return [Cr[k] for k in range(groups)]
+
+    xis = []
     for i in range(np_in):
         if s8:
             # byte-aligned offset-encoded planes: s = byte - 128, via the
             # bias-flip identity (byte ^ 0x80 reinterpreted as int8 ==
             # byte - 128 exactly) -- one XOR instead of widen/sub/narrow
             lo_bit = 8 * i
-            src = xlv if lo_bit < 32 else xhv
+            src = xl if lo_bit < 32 else xh
             sh = lo_bit & 31
             v = ((src >> np.uint32(sh)) & np.uint32(0xFF)) ^ np.uint32(0x80)
-            Xi = v.astype(jnp.int8)
         else:
             lo_bit = 7 * i
             if lo_bit + 7 <= 32:
-                v = (xlv >> np.uint32(lo_bit)) & np.uint32(0x7F)
+                v = (xl >> np.uint32(lo_bit)) & np.uint32(0x7F)
             elif lo_bit >= 32:
-                v = (xhv >> np.uint32(lo_bit - 32)) & np.uint32(0x7F)
+                v = (xh >> np.uint32(lo_bit - 32)) & np.uint32(0x7F)
             else:
-                v = ((xlv >> np.uint32(lo_bit)) | (xhv << np.uint32(32 - lo_bit))) & np.uint32(0x7F)
-            Xi = v.astype(jnp.int8)
-        if banded:
-            xis.append(Xi)
-            continue
-        if lane:
-            # mm here is planes_t (m, NP*m): a plain matmul
-            Ci = jax.lax.dot_general(
-                Xi, mm, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # (rows, NP*m)
-            Cir = Ci.reshape(xhv.shape[0], np_mat, m)
-        else:
-            Ci = jax.lax.dot_general(
-                mm, Xi, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # (NP*m, BT)
-            Cir = Ci.reshape(np_mat, m, xhv.shape[-1])
-        for k in range(np_mat):
-            blk = Cir[:, k, :] if lane else Cir[k]
-            tt = i + k
-            planes[tt] = blk if planes[tt] is None else planes[tt] + blk
+                v = (
+                    (xl >> np.uint32(lo_bit)) | (xh << np.uint32(32 - lo_bit))
+                ) & np.uint32(0x7F)
+        xis.append(v.astype(jnp.int8))
     if banded:
-        # ONE banded dot yields the 15 output planes -- no VPU merges and
-        # 4x less int32 product materialization (15mB vs 64mB words)
-        if lane:
-            Xa = jnp.concatenate(xis, axis=1)  # (rows, 8m)
-            C = jax.lax.dot_general(
-                Xa, mm, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # (rows, 15m); mm = planes_t (8m, 15m)
-            Cr = C.reshape(xhv.shape[0], n_out, m)
-            planes = [Cr[:, tt, :] for tt in range(n_out)]
-        else:
-            Xa = jnp.concatenate(xis, axis=0)  # (8m, BT)
-            C = jax.lax.dot_general(
-                mm, Xa, (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )  # (15m, BT)
-            Cr = C.reshape(n_out, m, xhv.shape[-1])
-            planes = [Cr[tt] for tt in range(n_out)]
-    z = jnp.zeros_like(xhv)
+        # ONE banded dot yields the 15 output planes -- no plane merges and
+        # 15 instead of 64 int32 product planes per point
+        planes = split(dot(jnp.concatenate(xis, axis=axis)), n_out)
+    else:
+        planes = [None] * n_out
+        for i, Xi in enumerate(xis):
+            for k, blk in enumerate(split(dot(Xi), np_in)):
+                tt = i + k
+                planes[tt] = blk if planes[tt] is None else planes[tt] + blk
+    if s8:
+        # per-output-row constant, indexed along the transform axis
+        cshape = (m,) if minor else (m,) + (1,) * (nd - 1)
+        corr = U64(t.corr.hi.reshape(cshape), t.corr.lo.reshape(cshape))
+    z = jnp.zeros(planes[0].shape, jnp.uint32)
     # Carry-free pre-sums: each word's hi spills AND its unshifted
     # (sh == 0) plane sum in PLAIN u32 -- they cannot wrap: spills are
     # P >> (32-sh) <= 2^21 (s8, biased P <= 2m*2^17 <= 2^28, min shift
@@ -369,8 +349,7 @@ def _mxu_body(t: MxuDirection, xhv, xlv, mm, corr=None, lane: bool = False):
     # per word), and at most one unshifted plane (<= 2^28) joins a
     # word, so every small[w] stays < 2^29 (s8) / 2^29.1 (u7).  Only
     # the full-range SHIFTED lo parts need carried u64_adds: 11 of the
-    # 26 s8 word-adds become u32 adds or the word's free init --
-    # measured -5% per m=256 level (0.638 -> 0.604 ms).
+    # 26 s8 word-adds become u32 adds or the word's free init.
     small = [None] * 6  # u32 pre-sums (unshifted planes + hi spills)
     los = [[] for _ in range(6)]  # full-range shifted lo parts
     for tt in range(n_out):
@@ -378,8 +357,8 @@ def _mxu_body(t: MxuDirection, xhv, xlv, mm, corr=None, lane: bool = False):
             # bias the signed plane non-negative; the bias is pre-folded
             # into corr.  |P| <= 8 * m * 2^14 = m << 17 EXACTLY (8 (a,b)
             # pairs x m terms x 128*128) -- an m-independent 2^26 bias
-            # silently wrapped negative planes at m = 1024 (round-5
-            # review finding, test_s8_bias_covers_worst_case)
+            # silently wraps negative planes at m = 1024
+            # (test_s8_bias_covers_worst_case)
             P = (planes[tt] + jnp.int32(m << 17)).astype(jnp.uint32)
             pos = 8 * tt
         else:
@@ -471,314 +450,64 @@ def _mxu_body(t: MxuDirection, xhv, xlv, mm, corr=None, lane: bool = False):
     d = u64_sub(T_hi, qn1)
     res = u64_select(u64_lt(T_hi, qn1), u64_add(d, nn), d)
     cand = u64_sub(res, nn)
-    return u64_select(u64_lt(res, nn), res, cand)
+    res = u64_select(u64_lt(res, nn), res, cand)
+    if not minor and axis:
+        res = U64(jnp.moveaxis(res.hi, 0, axis), jnp.moveaxis(res.lo, 0, axis))
+    return res
 
 
-def _use_interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-#: Batch rows per lane-variant block.  32 keeps the kernel's scoped-VMEM
-#: temporaries (int32 product planes etc.) under Mosaic's 16 MB stack
-#: limit at m=256 (128 rows OOM'd: 26.8 MB scoped).
-MXU_LANE_ROWS = 32
-
-
-@functools.lru_cache(maxsize=None)
-def _mxu_lane_call(meta: tuple):
-    """Jitted pallas_call for the lane orientation (transform along the
-    LAST axis of (B, m) data, gridded over row blocks)."""
-    m, inverse, modulus, c128, nprime, block_b, scheme = meta
-    t = MxuDirection(
-        m, inverse, None, None, None, modulus, c128, nprime, block_b, scheme
-    )
-    rows = MXU_LANE_ROWS
-    mat_r, mat_c = _mat_dims(scheme, m)
-
-    if scheme in ("s8", "s8b"):
-
-        def kernel(xh_ref, xl_ref, m_ref, ch_ref, cl_ref, oh_ref, ol_ref):
-            # corr indexed by output row p = the last (transformed) axis
-            corr = U64(ch_ref[0][None, :], cl_ref[0][None, :])
-            res = _mxu_body(t, xh_ref[:], xl_ref[:], m_ref[:], corr, lane=True)
-            oh_ref[:], ol_ref[:] = res.hi, res.lo
-
-    else:
-
-        def kernel(xh_ref, xl_ref, m_ref, oh_ref, ol_ref):
-            res = _mxu_body(t, xh_ref[:], xl_ref[:], m_ref[:], lane=True)
-            oh_ref[:], ol_ref[:] = res.hi, res.lo
-
-    @jax.jit
-    def call(xh, xl, planes_t, corr):
-        b = xh.shape[0]
-        x_spec = pl.BlockSpec(
-            (rows, m), lambda i: (i, 0), memory_space=pltpu.VMEM
-        )
-        m_spec = pl.BlockSpec(
-            (mat_c, mat_r), lambda i: (0, 0), memory_space=pltpu.VMEM
-        )
-        c_spec = pl.BlockSpec((1, m), lambda i: (0, 0), memory_space=pltpu.VMEM)
-        args = [xh, xl, planes_t]
-        in_specs = [x_spec, x_spec, m_spec]
-        if scheme in ("s8", "s8b"):
-            args += [corr.hi, corr.lo]
-            in_specs += [c_spec, c_spec]
-        return pl.pallas_call(
-            kernel,
-            out_shape=[jax.ShapeDtypeStruct((b, m), jnp.uint32)] * 2,
-            grid=(b // rows,),
-            in_specs=in_specs,
-            out_specs=[x_spec] * 2,
-            interpret=_use_interpret(),
-            **(
-                {}
-                if _use_interpret() or _compiler_params(m, block_b, scheme) is None
-                else {"compiler_params": _compiler_params(m, block_b, scheme)}
-            ),
-        )(*args)
-
-    return call
-
-
-def mxu_ntt_lane(x: U64, tables: MxuDirection, fc: FieldConsts) -> U64:
-    """Length-m matrix NTT along the LAST axis of (batch..., m): the
-    six-step row step on the natural layout, no transposes."""
-    m = tables.m
-    if x.lo.shape[-1] != m:
-        raise ValueError(f"trailing axis {x.lo.shape[-1]} != transform length {m}")
-    batch_shape = x.lo.shape[:-1]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    bp = _round_up(b, MXU_LANE_ROWS)
-    xh = x.hi.reshape(b, m)
-    xl = x.lo.reshape(b, m)
-    if bp != b:
-        xh = jnp.pad(xh, ((0, bp - b), (0, 0)))
-        xl = jnp.pad(xl, ((0, bp - b), (0, 0)))
-    oh, ol = _mxu_lane_call(_meta(tables))(xh, xl, tables.planes_t, tables.corr)
-    if bp != b:
-        oh, ol = oh[:b], ol[:b]
-    return U64(oh.reshape(batch_shape + (m,)), ol.reshape(batch_shape + (m,)))
-
-
-def _tw_mul(fc: FieldConsts, x: U64, w: U64, wp: U64 | None) -> U64:
-    """Inter-step twiddle multiply inside the kernel, via the engine the
-    tables were prepared for (mirrors planner._mont_mul_bcast)."""
+def _tw_mul(fc: FieldConsts, x: U64, tw) -> U64:
+    """Inter-step twiddle multiply via the engine the tables were prepared
+    for (mirrors planner._mont_mul_bcast)."""
     if fc.modmul == "solinas":
-        return fc.solinas_mul(x, w)
-    if wp is None:
-        return fc.mont_mul_full(x, w)
-    return fc.mont_mul(x, w, wp)
+        return fc.solinas_mul(x, tw.w)
+    if tw.wp is None:
+        return fc.mont_mul_full(x, tw.w)
+    return fc.mont_mul(x, tw.w, tw.wp)
 
 
-@functools.lru_cache(maxsize=None)
-def _mxu_call(meta: tuple, mid: bool, tw_mode: str = "none",
-              fc: FieldConsts | None = None):
-    """Jitted pallas_call for one direction (cached per table meta).
-
-    ``tw_mode``: "none" | "w" (companion-free / solinas) | "pair" -- the
-    inter-step six-step twiddle multiply FUSED into the kernel: prologue
-    on the forward (multiply before the matrix), epilogue on the inverse
-    (after) -- exactly the reference's single fork-join twiddle fusion
-    (reference include/sventt/kernel/recursive.hpp:61-75), here saving
-    one full HBM read+write pass per Split level.  Twiddle operands
-    arrive in the DATA layout: (m, B) blocks for the lead orientation
-    (pre-transposed tables), (a, m) rows for the mid orientation.
-    """
-    m, inverse, modulus, c128, nprime, block_b, scheme = meta
-    t = MxuDirection(
-        m, inverse, None, None, None, modulus, c128, nprime, block_b, scheme
-    )
-    mat_r, mat_c = _mat_dims(scheme, m)
-    s8 = scheme in ("s8", "s8b")
-    n_tw = {"none": 0, "w": 2, "pair": 4}[tw_mode]
-
-    def kernel(*refs):
-        it = iter(refs)
-        xh_ref, xl_ref, m_ref = next(it), next(it), next(it)
-        corr = None
-        if s8:
-            ch_ref, cl_ref = next(it), next(it)
-            # corr indexed by output row p = the leading axis of the tile
-            corr = U64(ch_ref[0][:, None], cl_ref[0][:, None])
-        w = wp = None
-        if n_tw:
-            whi, wlo = next(it), next(it)
-            if mid:  # (1, 1, m) row -> broadcast over the batch axis
-                w = U64(whi[0, 0][:, None], wlo[0, 0][:, None])
-            else:  # (m, block_b), same tile shape as the data
-                w = U64(whi[:], wlo[:])
-            if n_tw == 4:
-                phi, plo = next(it), next(it)
-                wp = (
-                    U64(phi[0, 0][:, None], plo[0, 0][:, None])
-                    if mid
-                    else U64(phi[:], plo[:])
-                )
-        oh_ref, ol_ref = next(it), next(it)
-        xh = xh_ref[0] if mid else xh_ref[:]
-        xl = xl_ref[0] if mid else xl_ref[:]
-        if n_tw and not inverse:
-            x = _tw_mul(fc, U64(xh, xl), w, wp)
-            xh, xl = x.hi, x.lo
-        res = _mxu_body(t, xh, xl, m_ref[:], corr)
-        if n_tw and inverse:
-            res = _tw_mul(fc, res, w, wp)
-        if mid:
-            oh_ref[0], ol_ref[0] = res.hi, res.lo
-        else:
-            oh_ref[:], ol_ref[:] = res.hi, res.lo
-
-    @jax.jit
-    def call(xh, xl, planes, corr, tw):
-        if mid:
-            a, _, b = xh.shape
-            grid = (a, b // block_b)
-            x_spec = pl.BlockSpec(
-                (1, m, block_b), lambda i, j: (i, 0, j),
-                memory_space=pltpu.VMEM,
-            )
-            m_spec = pl.BlockSpec(
-                (mat_r, mat_c), lambda i, j: (0, 0), memory_space=pltpu.VMEM
-            )
-            c_spec = pl.BlockSpec(
-                (1, m), lambda i, j: (0, 0), memory_space=pltpu.VMEM
-            )
-            # (a, 1, m) layout: Mosaic requires the LAST TWO block dims be
-            # divisible by (8, 128) or equal to the array dims; a (1, m)
-            # block over (a, m) violates that, a (1, 1, m) block over
-            # (a, 1, m) satisfies it exactly.
-            w_spec = pl.BlockSpec(
-                (1, 1, m), lambda i, j: (i, 0, 0), memory_space=pltpu.VMEM
-            )
-            out_shape = [jax.ShapeDtypeStruct((a, m, b), jnp.uint32)] * 2
-        else:
-            b = xh.shape[1]
-            grid = (b // block_b,)
-            x_spec = pl.BlockSpec(
-                (m, block_b), lambda i: (0, i), memory_space=pltpu.VMEM
-            )
-            m_spec = pl.BlockSpec(
-                (mat_r, mat_c), lambda i: (0, 0), memory_space=pltpu.VMEM
-            )
-            c_spec = pl.BlockSpec(
-                (1, m), lambda i: (0, 0), memory_space=pltpu.VMEM
-            )
-            w_spec = x_spec
-            out_shape = [jax.ShapeDtypeStruct((m, b), jnp.uint32)] * 2
-        args = [xh, xl, planes]
-        in_specs = [x_spec, x_spec, m_spec]
-        if s8:
-            args += [corr.hi, corr.lo]
-            in_specs += [c_spec, c_spec]
-        if n_tw:
-            args += [tw.w.hi, tw.w.lo]
-            in_specs += [w_spec, w_spec]
-            if n_tw == 4:
-                args += [tw.wp.hi, tw.wp.lo]
-                in_specs += [w_spec, w_spec]
-        return pl.pallas_call(
-            kernel,
-            out_shape=out_shape,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=[x_spec] * 2,
-            interpret=_use_interpret(),
-            **(
-                {}
-                if _use_interpret() or _compiler_params(m, block_b, scheme) is None
-                else {"compiler_params": _compiler_params(m, block_b, scheme)}
-            ),
-        )(*args)
-
-    return call
+def _apply(x: U64, tables: MxuDirection, fc: FieldConsts, tw, axis: int) -> U64:
+    """The matrix transform along ``axis`` with the optional inter-step
+    twiddle ``tw`` (already broadcastable against ``x``) applied before it
+    on the forward and after it on the inverse -- the reference's single
+    fork-join twiddle fusion (reference include/sventt/kernel/recursive.hpp:
+    61-75); XLA fuses it into the plane extraction or the recombination."""
+    m = tables.m
+    if x.lo.shape[axis] != m:
+        raise ValueError(
+            f"axis-{axis} length {x.lo.shape[axis]} != transform length {m}"
+        )
+    if tw is not None and not tables.inverse:
+        x = _tw_mul(fc, x, tw)
+    res = _mxu_body(tables, x.hi, x.lo, axis)
+    if tw is not None and tables.inverse:
+        res = _tw_mul(fc, res, tw)
+    return res
 
 
-def _meta(t: MxuDirection) -> tuple:
-    return (
-        t.m, t.inverse, t.modulus, t.c128, t.nprime, t.block_b, t.scheme
-    )
-
-
-def _round_up(x: int, mult: int) -> int:
-    return -(-x // mult) * mult
-
-
-def _tw_meta(tw, fc):
-    """(tw_mode, fc) cache key for the fused twiddle variants."""
+def _trailing_ones(tw, ndim: int):
+    """Reshape a twiddle MontPair to broadcast over ``ndim``-D data."""
     if tw is None:
-        return "none", None
-    return ("w" if tw.wp is None else "pair"), fc
+        return None
+    extra = ndim - tw.w.lo.ndim
+    return montpair_map(lambda a: a.reshape(a.shape + (1,) * extra), tw)
 
 
-def mxu_ntt(
-    x: U64, tables: MxuDirection, fc: FieldConsts, tw=None
-) -> U64:
+def mxu_ntt(x: U64, tables: MxuDirection, fc: FieldConsts, tw=None) -> U64:
     """Length-m matrix NTT along the leading axis of (m, batch...).
 
     Bit-compatible (mod N) with the other engines; output canonical
-    (lazy representatives when a lazy-mode twiddle epilogue is fused).
-    ``tw``: optional inter-step MontPair in the SAME (m, batch) layout as
-    the data (i.e. pre-transposed for the six-step lead orientation),
-    fused as prologue (forward) / epilogue (inverse).
+    (lazy representatives when a lazy-mode inverse twiddle follows).
+    ``tw``: optional inter-step MontPair laid out like the data's leading
+    axes (trailing batch axes broadcast), multiplied in before the matrix
+    on the forward and after it on the inverse.
     """
-    m = tables.m
-    if x.lo.shape[0] != m:
-        raise ValueError(f"leading axis {x.lo.shape[0]} != transform length {m}")
-    batch_shape = x.lo.shape[1:]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    bp = _round_up(b, tables.block_b)
-    xh = x.hi.reshape(m, b)
-    xl = x.lo.reshape(m, b)
-    if tw is not None:
-        tw = montpair_map(lambda a: a.reshape(m, b), tw)
-    if bp != b:
-        xh = jnp.pad(xh, ((0, 0), (0, bp - b)))
-        xl = jnp.pad(xl, ((0, 0), (0, bp - b)))
-        if tw is not None:
-            tw = montpair_map(
-                lambda a: jnp.pad(a, ((0, 0), (0, bp - b))), tw
-            )
-    mode, kfc = _tw_meta(tw, fc)
-    oh, ol = _mxu_call(_meta(tables), False, mode, kfc)(
-        xh, xl, tables.planes, tables.corr, tw
-    )
-    if bp != b:
-        oh, ol = oh[:, :b], ol[:, :b]
-    return U64(oh.reshape((m,) + batch_shape), ol.reshape((m,) + batch_shape))
+    return _apply(x, tables, fc, _trailing_ones(tw, x.lo.ndim), 0)
 
 
-def mxu_ntt_mid(
-    x: U64, tables: MxuDirection, fc: FieldConsts, tw=None
-) -> U64:
+def mxu_ntt_mid(x: U64, tables: MxuDirection, fc: FieldConsts, tw=None) -> U64:
     """Length-m matrix NTT along AXIS 1 of (A, m, batch...): the six-step
-    row step without transposes (the MXU analogue of fused_ntt_mid).
-    ``tw``: optional (A, m) inter-step MontPair fused as prologue
-    (forward) / epilogue (inverse), broadcast over the batch axes."""
-    m = tables.m
-    if x.lo.shape[1] != m:
-        raise ValueError(f"axis-1 length {x.lo.shape[1]} != transform length {m}")
-    a = x.lo.shape[0]
-    batch_shape = x.lo.shape[2:]
-    b = int(np.prod(batch_shape)) if batch_shape else 1
-    bp = _round_up(b, tables.block_b)
-    xh = x.hi.reshape(a, m, b)
-    xl = x.lo.reshape(a, m, b)
-    if bp != b:
-        pad = ((0, 0), (0, 0), (0, bp - b))
-        xh = jnp.pad(xh, pad)
-        xl = jnp.pad(xl, pad)
-    if tw is not None:
-        tw = montpair_map(lambda v: v.reshape(a, 1, m), tw)  # w_spec layout
-    mode, kfc = _tw_meta(tw, fc)
-    oh, ol = _mxu_call(_meta(tables), True, mode, kfc)(
-        xh, xl, tables.planes, tables.corr, tw
-    )
-    if bp != b:
-        oh, ol = oh[:, :, :b], ol[:, :, :b]
-    return U64(
-        oh.reshape((a, m) + batch_shape), ol.reshape((a, m) + batch_shape)
-    )
-
-
-
+    row step without transposes (with no batch axes, along the last axis
+    of (A, m)).  ``tw``: optional (A, m) inter-step MontPair, broadcast
+    over the batch axes."""
+    return _apply(x, tables, fc, _trailing_ones(tw, x.lo.ndim), 1)

@@ -1,26 +1,16 @@
-"""Transpose strategies for the six-step decomposition.
+"""Transposes for the six-step decomposition.
 
 The reference maintains a 14-class zoo of SVE transposes (in-register
 shuffles, gathers, explicit L1 blocking -- reference
 include/sventt/transposition/, SURVEY.md 2.1 #27-37) selected by benchmark.
-On TPU the same role collapses to two strategies selected the same way
-(benchmarks/bench_transpose.py is the autotuning corpus):
-
-* ``xla``    -- `jnp.swapaxes`: XLA's native tiled transpose.
-* ``pallas`` -- a blocked Pallas kernel: (BR, BC) tiles DMA'd to VMEM,
-  transposed in-registers (Mosaic relayout), written to the swapped block
-  position -- the analogue of the reference's in-register subblock
-  transposes (transposition/sve/in-register.hpp).
+Here XLA's own tiled transpose plays that role; the default six-step
+schedules are transpose-free, so these run only on fallback paths (deep row
+subtrees, non-jnp distributed row plans, the unbatched mxu root).
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..field.limb import U64
 
@@ -31,98 +21,6 @@ def transpose_xla(x: jnp.ndarray) -> jnp.ndarray:
     return jnp.transpose(x, perm)
 
 
-def _use_interpret() -> bool:
-    return jax.default_backend() != "tpu"
-
-
-@functools.partial(jax.jit, static_argnames=("br", "bc"))
-def transpose_pallas(x: jnp.ndarray, br: int = 256, bc: int = 256) -> jnp.ndarray:
-    """Blocked 2-D Pallas transpose of a (R, C) array -> (C, R).
-
-    Requires R % br == 0 and C % bc == 0.
-    """
-    r, c = x.shape
-    if r % br or c % bc:
-        raise ValueError(
-            f"shape ({r}, {c}) not divisible by blocks ({br}, {bc}); "
-            "a floor-divided grid would silently drop the remainder"
-        )
-
-    def kernel(x_ref, o_ref):
-        o_ref[:] = x_ref[:].T
-
-    return pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((c, r), x.dtype),
-        grid=(r // br, c // bc),
-        in_specs=[
-            pl.BlockSpec((br, bc), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-        ],
-        out_specs=pl.BlockSpec(
-            (bc, br), lambda i, j: (j, i), memory_space=pltpu.VMEM
-        ),
-        interpret=_use_interpret(),
-    )(x)
-
-
-@functools.partial(jax.jit, static_argnames=("br", "bc"))
-def _transpose_pallas_pair(xh, xl, br: int = 256, bc: int = 256):
-    """Both limb planes in ONE blocked kernel (round-4 VERDICT weak 5:
-    two separate per-plane kernels doubled launches and halved the DMA
-    interleaving opportunity).  The grid-pipelined BlockSpecs give
-    double-buffered in/out DMAs per plane automatically."""
-    r, c = xh.shape
-    if r % br or c % bc:
-        raise ValueError(
-            f"shape ({r}, {c}) not divisible by blocks ({br}, {bc}); "
-            "a floor-divided grid would silently drop the remainder"
-        )
-
-    def kernel(xh_ref, xl_ref, oh_ref, ol_ref):
-        oh_ref[:] = xh_ref[:].T
-        ol_ref[:] = xl_ref[:].T
-
-    i_spec = pl.BlockSpec((br, bc), lambda i, j: (i, j), memory_space=pltpu.VMEM)
-    o_spec = pl.BlockSpec((bc, br), lambda i, j: (j, i), memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kernel,
-        out_shape=[jax.ShapeDtypeStruct((c, r), xh.dtype)] * 2,
-        grid=(r // br, c // bc),
-        in_specs=[i_spec, i_spec],
-        out_specs=[o_spec, o_spec],
-        interpret=_use_interpret(),
-    )(xh, xl)
-
-
-def transpose_u64(x: U64, strategy: str = "xla", **kw) -> U64:
-    """Transpose both limb planes with the chosen strategy."""
-    if strategy == "xla":
-        return U64(transpose_xla(x.hi), transpose_xla(x.lo))
-    if strategy == "pallas":
-        return U64(*_transpose_pallas_pair(x.hi, x.lo, **kw))
-    raise ValueError(f"unknown transpose strategy {strategy!r}")
-
-
-def transpose01_u64(x: U64, strategy: str | None = None, block: int = 256) -> U64:
-    """Swap the two leading axes of a U64 with a configurable strategy.
-
-    The transform paths' transpose entry point (``NttConfig.transpose``):
-    the default six-step schedules are transpose-FREE (lane-axis and
-    middle-axis row kernels), so this only runs on fallback paths -- deep
-    row subtrees and non-jnp distributed row plans.  ``strategy`` None or
-    "auto" resolves to "xla"; "pallas" uses the blocked kernel when the
-    shape is 2-D with block-divisible axes (its win over XLA is
-    shape-dependent -- measure with benchmarks/bench_transpose.py, the
-    reference's bench-transpose corpus role) and falls back to XLA
-    otherwise.
-    """
-    if strategy in (None, "auto"):
-        strategy = "xla"
-    if (
-        strategy == "pallas"
-        and x.lo.ndim == 2
-        and x.lo.shape[0] % block == 0
-        and x.lo.shape[1] % block == 0
-    ):
-        return transpose_u64(x, "pallas", br=block, bc=block)
+def transpose01_u64(x: U64) -> U64:
+    """Swap the two leading axes of both limb planes."""
     return U64(transpose_xla(x.hi), transpose_xla(x.lo))

@@ -1,6 +1,6 @@
 """Twiddle-factor preparation: host tables + device-side table generation.
 
-The TPU analogue of the reference's prepare_forward/prepare_inverse aux
+The analogue of the reference's prepare_forward/prepare_inverse aux
 stream (reference include/sventt/wrapper.hpp:34-46 and every layer's
 ``prepare_*``): instead of a sequentially-consumed byte arena, twiddles are
 plain device arrays owned by the NTT wrapper and passed to jitted kernels as
@@ -169,8 +169,8 @@ def sixstep_row_twiddles(mod: Modulus, n0: int, n1: int) -> MontPair:
     four/six-step decomposition (reference layer/sve/generic.hpp:169-268
     ``twiddle_rows_forward`` with the bitreversed row indexing of
     layer/scalar/generic.hpp:36-38).  Host-side numpy; fine up to ~2^22
-    elements.  Larger transforms use the on-device generator in
-    sventt_tpu/ops/ntt_jnp.py (sixstep_row_twiddles_device).
+    elements.  Larger transforms use the on-device generator
+    ``sixstep_row_twiddles_device``.
     """
     from ..field.golden import bitreverse_permutation
 
@@ -242,14 +242,13 @@ def _mont_precompute_device(w: U64, mod: Modulus) -> U64:
 def sixstep_row_twiddles_device(
     mod: Modulus, n0: int, n1: int, *, inverse: bool = False,
     with_companion: bool = True, modmul: str = "montgomery",
-    transposed: bool = False,
 ) -> "MontPair":
     """Device-built inter-step twiddle matrix for large transforms.
 
     Same values as ``sixstep_row_twiddles[_inverse]`` but the n0 x n1 matrix
     is generated on-device: the host computes only the n0 per-row bases
     ``omega_n^(+-bitrev(p0))``, then a ``lax.scan`` over the n1 columns
-    carries a running product -- the TPU analogue of the reference's
+    carries a running product -- the analogue of the reference's
     on-the-fly omega^(j*cntd) recurrence
     (reference layer/sve/generic.hpp:183-267).  O(n0) host work instead of
     O(n0*n1); required for n >= ~2^22 where host Python-int tables are too
@@ -259,9 +258,6 @@ def sixstep_row_twiddles_device(
     ``modmul="montgomery"``: Montgomery-form values (+ optional companion).
     ``modmul="solinas"``: PLAIN canonical values, always companion-free
     (the solinas engine multiplies directly).
-    ``transposed=True`` returns the (n1, n0) matrix W^T[j1, p0] -- the
-    layout the fused-twiddle MXU lead kernel consumes -- which is FREE
-    here: the scan emits that orientation natively.
     """
     import jax
     import jax.numpy as jnp
@@ -297,12 +293,8 @@ def sixstep_row_twiddles_device(
             return mul(carry, base), carry
 
         _, cols = jax.lax.scan(step, one, None, length=n1)
-        # cols: (n1, n0) twiddles -- already the transposed orientation;
-        # transpose to (n0, n1) for the standard layout.
-        if transposed:
-            w = cols
-        else:
-            w = U64(jnp.transpose(cols.hi), jnp.transpose(cols.lo))
+        # cols: (n1, n0) twiddles; transpose to the (n0, n1) layout
+        w = U64(jnp.transpose(cols.hi), jnp.transpose(cols.lo))
         # with_companion=False halves twiddle memory for huge n: the
         # Montgomery companion is recomputed per multiply (mont_mul_full).
         wp = (

@@ -4,10 +4,15 @@ This subsystem has no reference equivalent -- the reference is a single-node
 OpenMP library (SURVEY.md section 2.5: "Distributed communication backend:
 ABSENT").  Per the mandate it is a first-class component here: the length-n
 coefficient vector is row-sharded over a `jax.sharding.Mesh` and the six-step
-transposes ride ICI as `jax.lax.all_to_all` collectives.
+transposes are `jax.lax.all_to_all` collectives.
 """
 
-from .budget import MemoryBudget, distributed_memory_budget, validate_2p30
+from .budget import (
+    MemoryBudget,
+    device_bytes_limit,
+    distributed_memory_budget,
+    validate_2p30,
+)
 from .mesh import make_ntt_mesh
 from .sixstep import DistributedNTT
 
@@ -15,6 +20,7 @@ __all__ = [
     "make_ntt_mesh",
     "DistributedNTT",
     "MemoryBudget",
+    "device_bytes_limit",
     "distributed_memory_budget",
     "validate_2p30",
 ]

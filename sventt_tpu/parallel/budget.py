@@ -1,16 +1,21 @@
 """Memory budgeting and plan validation for huge distributed transforms.
 
 BASELINE.md config 5 is the row-sharded 2^30 transform: 8 GB of limb
-coefficients (8 B/point) plus twiddle tables spread over a pod slice.  At
-that scale table/transient choices decide whether the plan fits at all --
-the single-chip analogues are ``donate_input`` (halves transient HBM) and
+coefficients (8 B/point) plus twiddle tables spread over a device mesh.
+At that scale table/transient choices decide whether the plan fits at all
+-- the single-device analogues are ``donate_input`` (halves transient
+memory) and
 the companion-free inter-step tables (halves twiddle bytes,
-plan/planner.py W_ONLY_THRESHOLD).  This module computes the per-chip
+plan/planner.py W_ONLY_THRESHOLD).  This module computes the per-device
 byte budget of a DistributedNTT WITHOUT building it, so 2^30-class plans
 can be validated cheaply anywhere (the CPU mesh, a front-end host), the
 way the reference dry-runs a FakeByteVector through its wrapper to size
 the aux arena before allocating (reference include/sventt/wrapper.hpp:34-46,
 memory/fake.hpp).
+
+The byte limit comes from the device itself (``memory_stats()``'s
+``bytes_limit``: what the JAX allocator may use) or from the caller; there
+is no assumed size for a device that reports none.
 """
 
 from __future__ import annotations
@@ -25,13 +30,28 @@ from ..plan.wrapper import _resolve_engine
 #: Bytes per coefficient: u64 as two u32 limb planes.
 BYTES_PER_POINT = 8
 
-#: Usable HBM per v5e chip (16 GB nominal; leave headroom for XLA's
-#: allocator, the program, and collective scratch).
-DEFAULT_HBM_BYTES = int(15.5 * (1 << 30))
+
+def device_bytes_limit(devices=None) -> int:
+    """The smallest ``bytes_limit`` that the given devices (default: all of
+    JAX's devices) report in ``memory_stats()``.  Raises ValueError for a
+    device that reports none (the CPU backend): pass ``hbm_bytes``
+    explicitly there."""
+    import jax
+
+    limits = []
+    for d in devices if devices is not None else jax.devices():
+        stats = d.memory_stats() or {}
+        if "bytes_limit" not in stats:
+            raise ValueError(
+                f"device {d} ({d.platform}) reports no memory limit; pass "
+                "hbm_bytes explicitly"
+            )
+        limits.append(int(stats["bytes_limit"]))
+    return min(limits)
 
 
-def _leaf_table_bytes(plan, block_b: int = 256, rows: int = 64) -> int:
-    """Bytes of the per-leaf stage tables (replicated on every chip)."""
+def _leaf_table_bytes(plan) -> int:
+    """Bytes of the per-leaf stage tables (replicated on every device)."""
     total = 0
     seen = set()
 
@@ -42,18 +62,13 @@ def _leaf_table_bytes(plan, block_b: int = 256, rows: int = 64) -> int:
                 return
             seen.add((node.m, node.engine))
             stages = node.m.bit_length() - 1
-            if node.engine == "pallas":
-                # four (m/2, block_b) u32 arrays per stage (+ scale rows)
-                total += (stages + 1) * 4 * (node.m // 2) * block_b * 4
-                # lane-axis variant: (stages, 4, rows, m) u32
-                total += stages * 4 * rows * node.m * 4
-            elif node.engine == "mxu":
-                # stacked digit-plane matrix (NP*m, m) int8 plus its
-                # transposed copy, and the s8 (1, m) U64 correction row
-                # (ops/ntt_mxu.py MxuDirection)
+            if node.engine == "mxu":
+                # the scheme's int8 digit-plane matrix and the (m,) U64
+                # correction row (ops/ntt_mxu.py MxuDirection)
                 from ..ops import ntt_mxu
 
-                total += 2 * ntt_mxu.NL_S8 * node.m * node.m + 8 * node.m
+                rows, cols = ntt_mxu._mat_dims(ntt_mxu.SCHEME, node.m)
+                total += rows * cols + 8 * node.m
             else:
                 total += stages * 4 * node.m * 4
         else:
@@ -66,7 +81,7 @@ def _leaf_table_bytes(plan, block_b: int = 256, rows: int = 64) -> int:
 
 @dataclass(frozen=True)
 class MemoryBudget:
-    """Per-chip byte budget of one DistributedNTT configuration."""
+    """Per-device byte budget of one DistributedNTT configuration."""
 
     n: int
     devices: int
@@ -84,7 +99,11 @@ class MemoryBudget:
             + self.directions * (self.inter_step_twiddles + self.leaf_tables)
         )
 
-    def fits(self, hbm_bytes: int = DEFAULT_HBM_BYTES) -> bool:
+    def fits(self, hbm_bytes: int | None = None) -> bool:
+        """Whether the budget fits ``hbm_bytes`` per device (default: the
+        limit JAX's devices report, see ``device_bytes_limit``)."""
+        if hbm_bytes is None:
+            hbm_bytes = device_bytes_limit()
         return self.total <= hbm_bytes
 
 
@@ -96,8 +115,8 @@ def distributed_memory_budget(
     enable_inverse: bool = True,
     donate_input: bool = False,
 ) -> MemoryBudget:
-    """Per-chip budget of ``DistributedNTT(config, mesh)`` with ``devices``
-    chips, without constructing anything."""
+    """Per-device budget of ``DistributedNTT(config, mesh)`` with
+    ``devices`` devices, without constructing anything."""
     n0, n1 = config.split
     if n0 % devices or n1 % devices:
         raise ValueError(
@@ -113,7 +132,7 @@ def distributed_memory_budget(
         # W-only threshold on BOTH the host path (n <= device threshold)
         # and the device-built path
         tw *= 2  # with companion
-    engine = _resolve_engine(config.engine)
+    engine = _resolve_engine(config.engine, n)
     leaf = _leaf_table_bytes(planner.build_plan(n0, engine)) + _leaf_table_bytes(
         planner.build_plan(n1, engine)
     )
@@ -132,10 +151,12 @@ def distributed_memory_budget(
     )
 
 
-def validate_2p30(devices: int = 8) -> MemoryBudget:
+def validate_2p30(devices: int = 4, hbm_bytes: int | None = None) -> MemoryBudget:
     """BASELINE config 5 feasibility: row-sharded 2^30 over ``devices``
-    chips must fit per-chip HBM one direction at a time with donation.
-    Returns the budget (also raises via NttConfig if the plan is invalid).
+    devices must fit each device's memory one direction at a time with
+    donation.  ``hbm_bytes``: bytes per device (default: what the devices
+    report, ``device_bytes_limit``).  Returns the budget (also raises via
+    NttConfig if the plan is invalid).
     """
     from ..field.modulus import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS
 
@@ -145,9 +166,11 @@ def validate_2p30(devices: int = 8) -> MemoryBudget:
     budget = distributed_memory_budget(
         cfg, devices, enable_inverse=False, donate_input=True
     )
-    if not budget.fits():
+    if hbm_bytes is None:
+        hbm_bytes = device_bytes_limit()
+    if not budget.fits(hbm_bytes):
         raise ValueError(
-            f"2^30 over {devices} chips needs {budget.total / 2**30:.1f} GiB "
-            f"per chip (> {DEFAULT_HBM_BYTES / 2**30:.1f} GiB)"
+            f"2^30 over {devices} devices needs {budget.total / 2**30:.1f} "
+            f"GiB per device (> {hbm_bytes / 2**30:.1f} GiB)"
         )
     return budget

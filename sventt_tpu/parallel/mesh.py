@@ -1,9 +1,9 @@
 """Mesh construction helpers for distributed transforms.
 
 The NTT's communication pattern is a single all-to-all over one axis, so the
-natural mesh is 1-D.  On a real pod slice `jax.make_mesh` lets XLA pick a
-device order that keeps the all-to-all on ICI rings; for CPU simulation the
-driver sets ``--xla_force_host_platform_device_count``.
+natural mesh is 1-D; on GPUs joined all to all (NVLink) the device order does
+not matter.  For CPU simulation set
+``XLA_FLAGS=--xla_force_host_platform_device_count=N``.
 """
 
 from __future__ import annotations

@@ -5,8 +5,8 @@ section 2.5): element (i, j) -> (j, i) moved through L1-blocked SVE shuffles
 inside one shared-memory node.  Here the n = n0*n1 coefficient vector is
 **row-sharded** over a 1-D `jax.sharding.Mesh` and the two transposes of the
 six-step schedule (reference include/sventt/kernel/recursive.hpp:61-75)
-become `jax.lax.all_to_all` collectives over ICI, with all butterfly work
-purely local between them.
+become `jax.lax.all_to_all` collectives (NCCL over NVLink on GPUs), with
+all butterfly work purely local between them.
 
 Data layout (forward):
 
@@ -49,10 +49,10 @@ def _all_to_all(x: U64, axis: str, split_axis: int, concat_axis: int) -> U64:
     )
 
 
-def _transpose01(x: U64, strategy: str | None = None) -> U64:
+def _transpose01(x: U64) -> U64:
     from ..ops.transpose import transpose01_u64
 
-    return transpose01_u64(x, strategy)
+    return transpose01_u64(x)
 
 
 class DistributedNTT:
@@ -64,24 +64,23 @@ class DistributedNTT:
     Requires ``n0 % D == 0`` and ``n1 % D == 0`` for the all-to-all tiling.
 
     ``axis`` may be a tuple of mesh axis names for hierarchical meshes
-    (e.g. ``("dcn", "ici")`` on a multi-slice pod): the shard dimension is
-    the combined axis and the collectives run over both tiers, with XLA
-    routing the intra-slice fraction over ICI.  Order the faster tier LAST
-    so neighboring shards live on the same slice.
+    (e.g. ``("host", "gpu")`` across several hosts): the shard dimension
+    is the combined axis and the collectives run over both tiers.  Order
+    the faster tier LAST so neighboring shards live on the same host.
 
-    ``comm`` selects the all-to-all implementation: ``"xla"`` (the
-    `lax.all_to_all` collective), ``"ring"`` (the Pallas remote-DMA
-    rotation ring, parallel/ring.py -- SURVEY.md section 2.5.5's optimized
-    path), or ``"overlap"`` (communication/compute overlap: the column
+    ``comm`` selects the schedule: ``"xla"`` (one `lax.all_to_all` per
+    transpose) or ``"overlap"`` (communication/compute overlap: the column
     step and [comm 2] are CHUNKED along the independent local column
     axis, so the collective for chunk c has no data dependency on the
     compute of chunk c+1 and XLA's async collectives + latency-hiding
-    scheduler run them concurrently on a real pod -- the multi-chip
-    analogue of the reference's single fork-join twiddle fusion,
-    reference kernel/recursive.hpp:61-75).  All are bit-identical; the
-    ring requires the mesh to consist of exactly the collective axes
-    (LOGICAL RDMA ids linearize them).  ``overlap_chunks`` sets the
-    pipeline depth (default 4; 1 degenerates to the "xla" schedule).
+    scheduler can run them concurrently -- the multi-device analogue of
+    the reference's single fork-join twiddle fusion, reference
+    kernel/recursive.hpp:61-75).  Both are bit-identical.
+    ``overlap_chunks`` sets the pipeline depth (default 4; 1 degenerates
+    to the "xla" schedule).
+
+    Every table lives on the mesh from construction on: the inter-step
+    twiddles column-sharded, the local sub-transform tables replicated.
     """
 
     def __init__(
@@ -101,19 +100,15 @@ class DistributedNTT:
             D *= mesh.shape[a]
         if n0 % D or n1 % D:
             raise ValueError(f"n0={n0}, n1={n1} must be divisible by mesh size {D}")
-        if comm not in ("xla", "ring", "overlap"):
-            raise ValueError(f"unknown comm {comm!r}")
+        if comm not in ("xla", "overlap"):
+            raise ValueError(
+                f"unknown comm {comm!r} (schedules: 'xla', 'overlap')"
+            )
         if comm == "overlap":
             w2 = n1 // D
             while overlap_chunks > 1 and w2 % overlap_chunks:
                 overlap_chunks -= 1
         self.overlap_chunks = overlap_chunks
-        if comm == "ring" and (tuple(mesh.axis_names) != axes or len(axes) != 1):
-            raise ValueError(
-                "comm='ring' needs a 1-D mesh whose single axis is the "
-                f"collective axis (mesh {mesh.axis_names}, axes {axes}); "
-                "hierarchical meshes use comm='xla'"
-            )
         self.config = config
         self.mesh = mesh
         self.axes = axes
@@ -127,9 +122,9 @@ class DistributedNTT:
         self.fc = FieldConsts.from_modulus(
             mod, lazy=config.lazy, modmul=_resolve_modmul(config)
         )
-        # Local sub-transforms run full plan trees (fused Pallas leaves on
-        # TPU), exactly like the single-chip wrapper's sub-NTTs.
-        engine = _resolve_engine(config.engine)
+        # Local sub-transforms run full plan trees, exactly like the
+        # single-device wrapper's sub-NTTs.
+        engine = _resolve_engine(config.engine, config.n)
         self._col_plan = planner.build_plan(n0, engine)
         self._row_plan = planner.build_plan(n1, engine)
         # Tables are built per enabled direction only (reference
@@ -138,22 +133,20 @@ class DistributedNTT:
         self._forward = self._inverse = None
         flat = P(axes)
         tw = P(None, axes)
-        rep = P()  # sub-transform tables are replicated on every chip
+        rep = P()  # sub-transform tables are replicated on every device
         tw_sharding = NamedSharding(mesh, P(None, axes))
-        # check_vma must be off: vma tracking cannot type a pallas_call
-        # whose inputs already vary over the mesh axes (jax 0.9), and both
-        # the ring collective and fused pallas leaf kernels are such calls.
-        smap = dict(
-            mesh=mesh, in_specs=(flat, tw, rep, rep), out_specs=flat,
-            check_vma=False,
-        )
+        rep_sharding = NamedSharding(mesh, rep)
+
+        def local_tables(plan, inverse):
+            return jax.device_put(
+                PlanTables(plan, mod, self.fc, inverse=inverse),
+                rep_sharding,
+            )
+
+        smap = dict(mesh=mesh, in_specs=(flat, tw, rep, rep), out_specs=flat)
         if enable_forward:
-            self._fwd_col = PlanTables(
-                self._col_plan, mod, self.fc, inverse=False, root_lead=False
-            )
-            self._fwd_row = PlanTables(
-                self._row_plan, mod, self.fc, inverse=False, root_lead=False
-            )
+            self._fwd_col = local_tables(self._col_plan, False)
+            self._fwd_row = local_tables(self._row_plan, False)
             # Inter-step twiddles live column-sharded on the device mesh.
             self._fwd_tw = jax.device_put(
                 row_twiddles(
@@ -165,12 +158,8 @@ class DistributedNTT:
                 jax.shard_map(self._forward_local, **smap)
             )
         if enable_inverse:
-            self._inv_col = PlanTables(
-                self._col_plan, mod, self.fc, inverse=True, root_lead=False
-            )
-            self._inv_row = PlanTables(
-                self._row_plan, mod, self.fc, inverse=True, root_lead=False
-            )
+            self._inv_col = local_tables(self._col_plan, True)
+            self._inv_row = local_tables(self._row_plan, True)
             self._inv_tw = jax.device_put(
                 row_twiddles(
                     mod, n0, n1, inverse=True, w_only=config.split_w_only
@@ -191,8 +180,8 @@ class DistributedNTT:
         return NamedSharding(self.mesh, P(self.axes))
 
     def forward_step(self):
-        """(step, tables) for truthful chain timing (utils.truetime),
-        API parity with the single-chip wrapper."""
+        """(step, tables) for chain timing (utils.truetime), API parity
+        with the single-device wrapper."""
         if self._forward is None:
             raise RuntimeError("forward transform was not enabled")
         return self._forward, (self._fwd_tw, self._fwd_col, self._fwd_row)
@@ -217,17 +206,7 @@ class DistributedNTT:
             return self.fc.mont_mul_full(mat, w)
         return self.fc.mont_mul(mat, w, wp)
 
-    def _all_to_all(
-        self, x: U64, split_axis: int, concat_axis: int, cid: int = 0
-    ) -> U64:
-        if self.comm == "ring":
-            from .ring import ring_all_to_all
-
-            # one collective_id per LOGICAL all-to-all (both limb planes
-            # move in a single kernel): see ring_all_to_all docstring
-            return ring_all_to_all(
-                x, self.axes, split_axis, concat_axis, collective_id=cid
-            )
+    def _all_to_all(self, x: U64, split_axis: int, concat_axis: int) -> U64:
         return _all_to_all(x, self.axes, split_axis, concat_axis)
 
     # -- comm/compute overlap (comm="overlap") ------------------------------
@@ -237,11 +216,9 @@ class DistributedNTT:
     # multiply, so both pipelines chunk it K ways: the [comm 2] collective
     # of chunk c has no data dependency on chunk c+1's compute, and XLA's
     # async collective start/done pairs let its latency-hiding scheduler
-    # run them concurrently ("send shard c while transforming shard c+1"
-    # -- the schedule parallel/ring.py:8-9 promises, realized with XLA
-    # collectives so it is bit-exact on any mesh today and overlaps on a
-    # real pod without further flags).  Total critical path becomes
-    # comm1 + max(colNTT+tw, comm2) + rowNTT instead of their sum.
+    # run them concurrently ("send shard c while transforming shard c+1").
+    # Total critical path becomes comm1 + max(colNTT+tw, comm2) + rowNTT
+    # instead of their sum.
 
     def _tw_slice(self, tw, sl):
         from ..ops.twiddle import MontPair, montpair_map
@@ -261,7 +238,7 @@ class DistributedNTT:
             sub = planner.run_forward(sub, self._col_plan, col_tables)
             sub = self._tw_mul(sub, *self._tw_slice(tw, sl))
             parts.append(
-                self._all_to_all(sub, split_axis=0, concat_axis=1, cid=2 + 2 * c)
+                self._all_to_all(sub, split_axis=0, concat_axis=1)
             )
 
         def reasm(arrs):
@@ -285,7 +262,7 @@ class DistributedNTT:
                 return a.reshape(h, D, K, wK)[:, :, c, :].reshape(h, D * wK)
 
             sub = U64(pick(mat.hi), pick(mat.lo))
-            sub = self._all_to_all(sub, split_axis=1, concat_axis=0, cid=2 + 2 * c)
+            sub = self._all_to_all(sub, split_axis=1, concat_axis=0)
             sl = slice(c * wK, (c + 1) * wK)
             sub = self._tw_mul(sub, *self._tw_slice(tw, sl))
             parts.append(
@@ -310,7 +287,7 @@ class DistributedNTT:
         w, wp = tw  # local (n0, n1/D) each
         mat = _u64_map(lambda a: a.reshape(n0 // D, n1), x)
         # [comm 1] row shards -> column shards: (n0/D, n1) -> (n0, n1/D)
-        mat = self._all_to_all(mat, split_axis=1, concat_axis=0, cid=0)
+        mat = self._all_to_all(mat, split_axis=1, concat_axis=0)
         if self.comm == "overlap":
             # column NTTs + twiddle + [comm 2], chunked for overlap
             mat = self._overlap_fwd_col_comm2(mat, (w, wp), col_tables)
@@ -319,7 +296,7 @@ class DistributedNTT:
             mat = planner.run_forward(mat, self._col_plan, col_tables)
             mat = self._tw_mul(mat, w, wp)
             # [comm 2] column shards of (n0, n1) -> column shards of (n1, n0)
-            mat = self._all_to_all(mat, split_axis=0, concat_axis=1, cid=2)
+            mat = self._all_to_all(mat, split_axis=0, concat_axis=1)
         # row NTTs on the (n0/D, n1) shard: a jnp row leaf runs along
         # axis 1 in place (no local transposes -- planner._jnp_mid_chunked,
         # twiddles already applied under the column sharding above)
@@ -328,9 +305,9 @@ class DistributedNTT:
                 mat, row_tables.leaf[(n1, "jnp")], self.fc, None, inverse=False
             )
         else:
-            mat = _transpose01(mat, self.config.transpose)  # -> (n1, n0/D)
+            mat = _transpose01(mat)  # -> (n1, n0/D)
             mat = planner.run_forward(mat, self._row_plan, row_tables)
-            mat = _transpose01(mat, self.config.transpose)  # -> (n0/D, n1)
+            mat = _transpose01(mat)  # -> (n0/D, n1)
         return _u64_map(lambda a: a.reshape(n0 // D * n1), mat)
 
     def _inverse_local(self, x: U64, tw, row_tables, col_tables) -> U64:
@@ -343,17 +320,17 @@ class DistributedNTT:
                 mat, row_tables.leaf[(n1, "jnp")], self.fc, None, inverse=True
             )
         else:
-            mat = _transpose01(mat, self.config.transpose)  # (n1, n0/D)
+            mat = _transpose01(mat)  # (n1, n0/D)
             mat = planner.run_inverse(mat, self._row_plan, row_tables)
-            mat = _transpose01(mat, self.config.transpose)  # (n0/D, n1)
+            mat = _transpose01(mat)  # (n0/D, n1)
         if self.comm == "overlap":
             # undo [comm 2] + twiddles + column NTTs, chunked for overlap
             mat = self._overlap_inv_comm2_col(mat, (w, wp), col_tables)
         else:
             # undo [comm 2]
-            mat = self._all_to_all(mat, split_axis=1, concat_axis=0, cid=2)
+            mat = self._all_to_all(mat, split_axis=1, concat_axis=0)
             mat = self._tw_mul(mat, w, wp)  # undo twiddles
             mat = planner.run_inverse(mat, self._col_plan, col_tables)
         # undo [comm 1]: column shards -> row shards
-        mat = self._all_to_all(mat, split_axis=0, concat_axis=1, cid=0)
+        mat = self._all_to_all(mat, split_axis=0, concat_axis=1)
         return _u64_map(lambda a: a.reshape(n0 // D * n1), mat)

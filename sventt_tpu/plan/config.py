@@ -2,7 +2,7 @@
 
 The reference's configuration system is C++ template parameters -- modulus,
 modmul engine, radix per stage, blocking, transpose strategy -- all fixed at
-compile time (SURVEY.md section 6, "Config / flag system").  The TPU-native
+compile time (SURVEY.md section 6, "Config / flag system").  The JAX
 equivalent is this dataclass: every field is static at jit-trace time, so XLA
 specializes exactly like the C++ compiler did.
 """
@@ -25,21 +25,22 @@ class NttConfig:
     Strategies (the reference's kernel/algorithm families, README.md:7-8):
 
     * ``iterative``  -- all stages over the full vector (reference
-      kernel/iterative.hpp); right for lengths whose working set fits VMEM.
+      kernel/iterative.hpp); right for short lengths.
     * ``six_step``   -- n = n0*n1 matrix: column NTTs, twiddle, transpose,
       row NTTs, transpose (reference layer/sve/generic.hpp four/six-step).
-      On TPU the transposes are XLA/Pallas tile transposes on one chip and
-      ICI all-to-alls on a mesh.
+      On one device the row step runs in place along the matrix's second
+      axis (no transposes); on a mesh the transposes are all-to-alls.
 
-    ``engine`` selects the butterfly implementation: ``jnp`` (portable pure
-    XLA) or ``pallas`` (fused VMEM kernels); ``auto`` picks pallas on TPU.
+    ``engine`` selects the leaf implementation: ``jnp`` (radix-2
+    butterflies on u32 limb pairs), ``mxu`` (the length-m DFT as int8
+    matrix products, ops/ntt_mxu.py) or ``auto`` (a rule on n alone,
+    plan/wrapper.py ``_resolve_engine``).
 
-    The kernel knobs (``block_b``, ``stages_per_call``, ``lane_rows``,
-    ``max_fused``) default to measured static heuristics; ``tune=True``
-    replaces them with values selected by the benchmark-driven autotuner
-    (plan/autotune.py) -- the TPU-native analogue of the reference choosing
-    every template parameter from its measured tuning corpus (reference
-    tests/bench-transpose.cpp:105-499, README.md:26-27).
+    ``max_fused``, ``chunk_elems`` and ``split_w_only`` default to static
+    heuristics; ``tune=True`` replaces them with values selected by the
+    benchmark-driven autotuner (plan/autotune.py) -- the analogue of the
+    reference choosing every template parameter from its measured tuning
+    corpus (reference tests/bench-transpose.cpp:105-499, README.md:26-27).
     """
 
     modulus: int
@@ -49,55 +50,30 @@ class NttConfig:
     n0: int | None = None  # six-step: column-transform length (matrix rows)
     n1: int | None = None  # six-step: row-transform length (matrix cols)
     lazy: bool | None = None  # None: lazy iff bit_width(N) <= 62
-    engine: str = "auto"  # "jnp" | "pallas" | "auto"
+    engine: str = "auto"  # "jnp" | "mxu" | "auto"
     #: Twiddle-multiply engine (reference's PAdic64 vs FixedPoint64 choice):
-    #: "montgomery", "shoup" (needs bit_width(N) <= 62), or "auto" (shoup
-    #: when the lazy range discipline allows it -- one fewer u64 multiply
-    #: per butterfly).
+    #: "montgomery", "shoup" (needs bit_width(N) <= 62), "solinas"
+    #: (sparse-high moduli), or "auto" (plan/wrapper.py _resolve_modmul).
     modmul: str = "auto"
-    #: Pallas kernel knobs (None = static defaults in ops/ntt_pallas.py).
-    block_b: int | None = None  # sublane/mid kernel lane-tile width
-    stages_per_call: int | None = None  # butterfly stages per pallas_call
-    lane_rows: int | None = None  # lane-kernel batch-rows block height
-    max_fused: int | None = None  # largest fused leaf in the plan tree
-    #: Pallas leaves: fold stages into radix-2^max_r grouped bodies (the
-    #: reference's radix-4/8 layer structure, layer/sve/radix-eight.hpp);
-    #: None/1 = per-stage radix-2 (ops/ntt_pallas.py DEFAULT_MAX_RADIX).
-    max_r: int | None = None
-    #: jnp engine: VMEM-resident chunk size in elements (None = the
-    #: measured default, plan/planner.py JNP_RESIDENT_ELEMS).
+    max_fused: int | None = None  # largest leaf in the plan tree
+    #: jnp engine: chunk size in elements of a leaf level (None = the
+    #: static default, plan/planner.py JNP_RESIDENT_ELEMS).
     chunk_elems: int | None = None
-    #: Pallas leaf stage-twiddle storage layout: "tiled" (full (m/2, b)
-    #: butterfly layout per stage, 4x VMEM but plain aligned reads),
-    #: "dedup" (only the l distinct rows -- the reference's
-    #: store_precomputation memory/compute trade for STAGE tables,
-    #: layer/sve/radix-two.hpp:96-138), or "hybrid" (dedup except the
-    #: sub-8-row tail stages).  None = "tiled" (static default).
-    tw_layout: str | None = None
     #: Store the inter-step twiddle matrix WITHOUT its Montgomery companion
     #: array (the multiply recomputes the companion in flight) -- halves the
-    #: dominant HBM table read of large six-step levels at the cost of one
-    #: extra u64 low-product per point.  None = size heuristic
-    #: (plan/planner.py W_ONLY_THRESHOLD); the TPU analogue of the
-    #: reference's store_precomputation=false memory/compute trade
+    #: table read of large six-step levels at the cost of one extra u64
+    #: low-product per point.  None = size heuristic
+    #: (plan/planner.py W_ONLY_THRESHOLD); the analogue of the reference's
+    #: store_precomputation=false memory/compute trade
     #: (reference layer/sve/radix-two.hpp:96-138).
     split_w_only: bool | None = None
-    #: Transpose strategy for fallback split levels and distributed local
-    #: steps.  "auto"/"xla" only: the blocked Pallas alternative (kept in
-    #: ops/transpose.py as the benchmarks/bench_transpose.py corpus, the
-    #: reference's bench-transpose role, tests/bench-transpose.cpp:105-499)
-    #: lost to XLA at EVERY measured shape even as a single pair-kernel
-    #: with rectangular tiles (round-5 sweep: best 2354 vs 2806 GB/s at
-    #: 1024^2, 3-6x behind at the skewed six-step shapes), so it is not a
-    #: public knob.  The default schedules are transpose-free anyway.
-    transpose: str = "auto"
     #: Explicit MIXED-ENGINE plan tree, overriding strategy/engine/
     #: max_fused plan construction: a comma list, top-down -- every
     #: element but the last is ``engine:m1`` (one Split level whose ROW
     #: leaf uses that engine at length m1), the last is a bare engine
     #: name for the final column leaf.  E.g. ``"mxu:512,mxu:512,jnp"``
     #: at n = 2^26 = Split(2^26, 2^17, 512-mxu) -> Split(2^17, 2^8,
-    #: 512-mxu) -> Leaf(2^8, jnp).  The TPU analogue of the reference's
+    #: 512-mxu) -> Leaf(2^8, jnp).  The analogue of the reference's
     #: freely-mixed layer lists in one kernel type expression (reference
     #: tests/ntt-tests/recursive-sve-radix248-two13.hpp); autotunable.
     plan_spec: str | None = None
@@ -105,7 +81,7 @@ class NttConfig:
     tune: bool = False
 
     # largest transform the iterative strategy handles before auto switches
-    # to six-step (working set 16*n bytes vs ~16 MB VMEM, leave headroom)
+    # to six-step
     ITERATIVE_MAX: int = field(default=1 << 13, repr=False)
 
     def __post_init__(self):
@@ -119,8 +95,11 @@ class NttConfig:
             )
         if self.strategy not in ("auto", "iterative", "six_step"):
             raise ValueError(f"unknown strategy {self.strategy!r}")
-        if self.engine not in ("auto", "jnp", "pallas", "mxu"):
-            raise ValueError(f"unknown engine {self.engine!r}")
+        if self.engine not in ("auto", "jnp", "mxu"):
+            raise ValueError(
+                f"unknown engine {self.engine!r} (engines: 'jnp', 'mxu', "
+                "'auto'; the 'pallas' engine was removed)"
+            )
         if self.modmul not in ("auto", "montgomery", "shoup", "solinas"):
             raise ValueError(f"unknown modmul engine {self.modmul!r}")
         if self.modmul == "solinas":
@@ -131,22 +110,10 @@ class NttConfig:
                     "solinas modmul requires a sparse-high modulus "
                     "N = 2^64 - (c*2^s - 1), bit_width(c*2^s) <= 42"
                 )
-        if self.transpose not in ("auto", "xla"):
-            raise ValueError(
-                f"unknown transpose strategy {self.transpose!r} (the blocked "
-                "pallas transpose lost to XLA at every measured shape and "
-                "lives in benchmarks/bench_transpose.py only)"
-            )
-        for name in ("block_b", "stages_per_call", "lane_rows", "max_fused", "chunk_elems"):
+        for name in ("max_fused", "chunk_elems"):
             v = getattr(self, name)
-            if v is not None and (v < 1 or (name != "stages_per_call" and not _is_pow2(v))):
+            if v is not None and not _is_pow2(v):
                 raise ValueError(f"{name} must be a positive power of two, got {v}")
-        if self.max_r is not None and not 1 <= self.max_r <= 4:
-            raise ValueError(f"max_r must be in 1..4, got {self.max_r}")
-        if self.tw_layout is not None and self.tw_layout not in (
-            "tiled", "dedup", "hybrid"
-        ):
-            raise ValueError(f"unknown tw_layout {self.tw_layout!r}")
         if self.strategy == "six_step" or (
             self.strategy == "auto" and self.n > self.ITERATIVE_MAX
         ):

@@ -1,6 +1,6 @@
 """The public NTT wrapper: owns device twiddle tables, runs transforms.
 
-TPU-native analogue of ``NTT<kernel_type>`` (reference
+JAX analogue of ``NTT<kernel_type>`` (reference
 include/sventt/wrapper.hpp:13-83).  Where the reference dry-runs a
 FakeByteVector to size a byte arena and then streams twiddles through an aux
 cursor, here preparation materializes named device arrays (pytrees) once per
@@ -32,33 +32,37 @@ from . import planner
 from .config import NttConfig
 
 
+#: 'auto' modmul picks Shoup from this n up (lazy-capable moduli only):
+#: one fewer u64 product per butterfly.  Not yet tuned on the GPU.
+SHOUP_MIN_N = 1 << 22
+
+
 def _resolve_modmul(config: NttConfig) -> str:
-    """'auto' -> Shoup at HBM-scale n for lazy-capable moduli (~30% fewer
-    VMEM-touching multiplies, measured 20.6 vs 29 ms at 2^24), Montgomery
-    otherwise (wins the XLA VMEM-resident fast path at small/mid n)."""
+    """'auto' -> Shoup at n >= SHOUP_MIN_N for lazy-capable moduli,
+    Montgomery otherwise."""
     if config.modmul != "auto":
         return config.modmul
     lazy = config.lazy if config.lazy is not None else config.mod.bit_width <= 62
-    if lazy and config.n >= (1 << 22):
+    if lazy and config.n >= SHOUP_MIN_N:
         return "shoup"
     return "montgomery"
 
 
-def _resolve_engine(engine: str) -> str:
-    """'auto' -> the MXU matrix engine on TPU, jnp elsewhere.
+#: 'auto' engine: the matrix engine for n in [MXU_MIN_N, MXU_MAX_N], the
+#: butterfly engine elsewhere.  From the engine table in PERF.md (H100,
+#: flagship modulus, forward and inverse at 2^17, 2^20, 2^24, 2^28): the
+#: matrix engine won at 2^17 only.  Sizes between the measured ones are not
+#: measured and stay on jnp.
+MXU_MIN_N = 1 << 17
+MXU_MAX_N = 1 << 17
 
-    The round-5 tuned corpus has mxu winning EVERY measured config
-    2^10-2^28 on both moduli and both directions (BENCH_RESULTS.md), so
-    untuned TPU configs -- sizes without an autotune_cache entry -- now
-    default to the winner too.  Off-TPU (tests, CPU sim) the portable
-    XLA engine remains the default: interpret-mode matrix kernels are
-    correctness-grade only.  jnp/pallas stay selectable and autotunable.
-    """
+
+def _resolve_engine(engine: str, n: int) -> str:
+    """'auto' -> an engine chosen from the transform length alone, the same
+    rule on every backend."""
     if engine != "auto":
         return engine
-    import jax
-
-    return "mxu" if jax.default_backend() == "tpu" else "jnp"
+    return "mxu" if MXU_MIN_N <= n <= MXU_MAX_N else "jnp"
 
 
 class NTT:
@@ -87,16 +91,14 @@ class NTT:
         self.fc = FieldConsts.from_modulus(
             self.mod, lazy=config.lazy, modmul=_resolve_modmul(config)
         )
-        self.engine = _resolve_engine(config.engine)
+        self.engine = _resolve_engine(config.engine, config.n)
         self.plan = self._build_plan()
         self._fwd = self._inv = None
         plan = self.plan
         donate = (0,) if donate_input else ()
         cfg = self.config
         knobs = dict(
-            block_b=cfg.block_b, spc=cfg.stages_per_call, rows=cfg.lane_rows,
-            chunk_elems=cfg.chunk_elems, split_w_only=cfg.split_w_only,
-            transpose=cfg.transpose, max_r=cfg.max_r, tw_layout=cfg.tw_layout,
+            chunk_elems=cfg.chunk_elems, split_w_only=cfg.split_w_only
         )
         if enable_forward:
             self._fwd_tables = planner.PlanTables(
@@ -143,11 +145,11 @@ class NTT:
     def describe(self, batched: bool = False) -> str:
         """Human-readable execution strategy per plan node.
 
-        Shows which path each Split's row leaf takes -- lane-axis (no
-        transposes), middle-axis (batched, no transposes), or the
+        Shows which path each Split's row leaf takes -- in place along the
+        matrix's second axis with the twiddle fused, or the
         transpose/leaf/transpose fallback -- so silent fallbacks are
-        visible (round-1 VERDICT weak item 8).  ``batched`` describes the
-        schedule for inputs with trailing batch dims.
+        visible.  ``batched`` describes the schedule for inputs with
+        trailing batch dims.
         """
         from . import planner as P
 
@@ -158,17 +160,13 @@ class NTT:
             if isinstance(node, P.Leaf):
                 lines.append(f"{pad}leaf m={node.m} engine={node.engine}")
                 return
-            if not batch and P._lane_row(node):
-                row = f"lane-axis pallas m1={node.m1} (fused twiddle, no transposes)"
-            elif batch and P._lane_row(node):
-                row = f"mid-axis pallas m1={node.m1} (no transposes)"
+            if P._mxu_row(node):
+                row = f"in-place mxu m1={node.m1} (fused twiddle, no transposes)"
             elif P._jnp_row(node):
                 row = (
                     f"mid-axis jnp m1={node.m1} "
-                    "(chunked VMEM-resident, fused twiddle, no transposes)"
+                    "(chunked, fused twiddle, no transposes)"
                 )
-            elif isinstance(node.row, P.Leaf):
-                row = f"transposed row leaf m1={node.m1}"
             else:
                 row = f"transposed row subtree m1={node.m1}"
             lines.append(f"{pad}split {node.m} = {node.m0} x {node.m1}: {row}")
@@ -180,7 +178,7 @@ class NTT:
         return "\n".join(lines)
 
     def forward_step(self):
-        """(step, tables) for truthful chain timing (utils.truetime).
+        """(step, tables) for chain timing (utils.truetime).
 
         ``time_chained(step, x, tables)`` traces the step into one
         fori_loop program; the tables tuple keeps the twiddles as jit

@@ -1,15 +1,15 @@
-"""Utilities: instance caching, profiling hooks, truthful device timing."""
+"""Utilities: instance caching, compile cache, profiling hooks, chain timing."""
 
 from .cache import cached_ntt, clear_ntt_cache
+from .compile_cache import enable_compile_cache
 from .profiling import phase_breakdown, trace
-from .truetime import measure_rtt, stream_gbps, time_chained
+from .truetime import time_chained
 
 __all__ = [
     "cached_ntt",
     "clear_ntt_cache",
-    "measure_rtt",
+    "enable_compile_cache",
     "phase_breakdown",
-    "stream_gbps",
     "time_chained",
     "trace",
 ]

@@ -80,8 +80,8 @@ def test_magic_series_chunked_matches_direct():
 
 
 def test_magic_series_via_mxu_engine():
-    """The end-to-end convolution pipeline over the MXU matrix engine
-    (the round-4 headline engine): forward -> Montgomery pointwise ->
+    """The end-to-end convolution pipeline over the int8 matrix engine
+    (``engine="mxu"``): forward -> Montgomery pointwise ->
     inverse must still reproduce the exact count."""
     from sventt_tpu.apps.convolve import make_convolver
 
@@ -165,8 +165,8 @@ def test_three_way_cross_check(m):
 
 
 #: Exact magic-series counts at the reference's test scale, computed and
-#: verified by examples/magic_series_reference_scale.py (2026-08-17, TPU
-#: v5 lite): NTT-pipeline residues CRT-combined over 17 independently
+#: verified by examples/magic_series_reference_scale.py (2026-08-17):
+#: NTT-pipeline residues CRT-combined over 17 independently
 #: generated 62-bit NTT primes, checked against 2 held-out moduli, then
 #: confirmed by the device Kinnaes closed form over an 8-config
 #: (width 64..61 x 2 primes) matrix per order -- the reference validates

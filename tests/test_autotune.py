@@ -20,35 +20,44 @@ def _cfg(n=1 << 10, **kw):
 
 
 def test_knob_fields_validate():
-    _cfg(block_b=128, stages_per_call=3, lane_rows=32, max_fused=128)
+    _cfg(max_fused=128, chunk_elems=1 << 12, split_w_only=True)
     with pytest.raises(ValueError):
-        _cfg(block_b=100)
+        _cfg(max_fused=100)
     with pytest.raises(ValueError):
-        _cfg(lane_rows=-8)
+        _cfg(chunk_elems=-8)
+    # the removed Mosaic kernels' knobs and engine are refused outright
+    for knob in ("block_b", "stages_per_call", "lane_rows", "max_r", "tw_layout"):
+        with pytest.raises(TypeError, match=knob):
+            _cfg(**{knob: 128})
+    with pytest.raises(ValueError, match="pallas"):
+        _cfg(engine="pallas")
 
 
 def test_knobs_reach_kernels_bit_exact(rng):
     """Non-default knobs through the full NTT wrapper stay bit-exact."""
-    n = 1 << 8
-    cfg = _cfg(
-        n, engine="pallas", strategy="six_step", n0=16, n1=16,
-        block_b=128, stages_per_call=2, lane_rows=16, max_fused=16,
-    )
-    ntt = NTT(cfg)
+    n = 1 << 10
     mod = Modulus(TEST_MODULUS, TEST_GENERATOR)
     x = rng.integers(0, TEST_MODULUS, n, dtype=np.uint64)
-    out = ntt.forward_numpy(x)
     want = GoldenNTT(n, mod).forward(list(map(int, x)))
-    assert list(map(int, out)) == want
-    assert (ntt.inverse_numpy(out) == x).all()
-    # knobs actually reached the prepared tables
-    leaf = ntt._fwd_tables.leaf[(16, "pallas")]
-    assert leaf.block_b == 128 and leaf.spc == 2
+    for cfg in (
+        _cfg(n, engine="jnp", max_fused=32, chunk_elems=1 << 6, split_w_only=True),
+        _cfg(n, engine="mxu", max_fused=16, split_w_only=False),
+    ):
+        ntt = NTT(cfg)
+        out = ntt.forward_numpy(x)
+        assert list(map(int, out)) == want
+        assert (ntt.inverse_numpy(out) == x).all()
+        # knobs actually reached the plan and the prepared tables
+        assert ntt.plan.m1 <= cfg.max_fused
+        t = ntt._fwd_tables
+        assert t.chunk_elems == cfg.chunk_elems
+        tw = t.split_tw[(ntt.plan.m0, ntt.plan.m1)]
+        assert (tw.wp is None) == cfg.split_w_only
 
 
 def test_tune_cpu_picks_jnp_and_caches(tmp_path, monkeypatch):
-    """On the CPU backend the tuner only races XLA candidates (interpret-
-    mode pallas timings are meaningless) and persists its winner."""
+    """The tuner races both engines on every backend; on a tie the first
+    candidate (jnp) wins, and an explicit cache path persists it."""
     cache = tmp_path / "tune.json"
     monkeypatch.setattr(autotune, "_time_candidate", lambda cfg, iters, reps=2: 1.0)
     cfg = _cfg(1 << 10, tune=True)
@@ -70,54 +79,53 @@ def test_tune_cpu_picks_jnp_and_caches(tmp_path, monkeypatch):
 
 
 def test_staged_search_selects_measured_minimum(monkeypatch):
-    """Force a pallas candidate space with a synthetic cost model and check
-    greedy coordinate descent lands on the cost minimum."""
-    monkeypatch.setattr(autotune, "_engine_candidates", lambda cfg: ["pallas"])
+    """A synthetic cost model over both engine families: each family's
+    descent walks its own knobs, and the search lands on the minimum."""
     monkeypatch.setattr(
         autotune, "_modmul_candidates", lambda cfg: ["montgomery", "shoup"]
     )
 
     def fake_time(cfg, iters, reps=2):
         cost = 10.0
-        if cfg.modmul == "shoup":
+        if cfg.engine == "mxu":
             cost -= 1.0
-        if cfg.max_fused == 128:
-            cost -= 0.5
-        if cfg.block_b == 512:
-            cost -= 0.25
-        if cfg.stages_per_call == 3:
-            cost -= 0.25
-        if cfg.lane_rows == 128:
+            if cfg.max_fused == 256:
+                cost -= 0.5
+            if cfg.split_w_only:
+                cost -= 0.25
+        if cfg.modmul == "shoup":
+            cost -= 2.0  # never raced for mxu (a duplicate of montgomery)
+        if cfg.chunk_elems == 1 << 19:
             cost -= 0.125
         return cost
 
     monkeypatch.setattr(autotune, "_time_candidate", fake_time)
-    best, _, timings = autotune.search(_cfg(1 << 12, engine="pallas"))
-    assert best.modmul == "shoup"
-    assert best.max_fused == 128
-    assert best.block_b == 512
-    assert best.stages_per_call == 3
-    assert best.lane_rows == 128
-    # stage A raced both modmuls, stages B/C walked every grid value once
-    assert "pallas/montgomery" in timings and "pallas/shoup" in timings
+    monkeypatch.setattr(autotune, "_verify_winner", lambda c, b: None)
+    best, _, timings = autotune.search(_cfg(1 << 20))
+    assert (best.engine, best.modmul) == ("jnp", "shoup")
+    assert best.chunk_elems == 1 << 19
+    assert "mxu/shoup" not in timings
+    assert timings["mxu/max_fused=256"] < timings["mxu/montgomery"]
+    assert "jnp/montgomery" in timings and "jnp/shoup" in timings
 
 
 def test_search_survives_failing_candidates(monkeypatch):
-    monkeypatch.setattr(autotune, "_engine_candidates", lambda cfg: ["pallas"])
     monkeypatch.setattr(
         autotune, "_modmul_candidates", lambda cfg: ["montgomery", "shoup"]
     )
 
     def flaky(cfg, iters, reps=2):
-        if cfg.modmul == "shoup" or cfg.block_b == 512:
+        if cfg.modmul == "shoup" or cfg.max_fused == 256:
             raise RuntimeError("compile blew up")
         return 5.0
 
     monkeypatch.setattr(autotune, "_time_candidate", flaky)
-    best, _, timings = autotune.search(_cfg(1 << 12, engine="pallas"))
+    best, _, timings = autotune.search(_cfg(1 << 12, engine="mxu"))
     assert best.modmul == "montgomery"
-    assert best.block_b != 512
-    assert timings["pallas/shoup"] == float("inf")
+    assert best.max_fused != 256
+    assert timings["mxu/max_fused=256"] == float("inf")
+    # the race stays within the default scheme's largest leaf
+    assert "mxu/max_fused=1024" not in timings
 
 
 def test_tune_true_resolves_via_wrapper(tmp_path, monkeypatch):
@@ -136,7 +144,6 @@ def test_tune_true_resolves_via_wrapper(tmp_path, monkeypatch):
 def test_playoff_finalist_selection(monkeypatch):
     """Near-tied candidates are re-raced interleaved; the playoff winner is
     returned even when the greedy pass ranked it second."""
-    monkeypatch.setattr(autotune, "_backend", lambda: "tpu")
     monkeypatch.setattr(autotune, "_engine_candidates", lambda cfg: ["jnp"])
     monkeypatch.setattr(
         autotune, "_modmul_candidates", lambda cfg: ["montgomery", "shoup"]
@@ -163,7 +170,6 @@ def test_playoff_finalist_selection(monkeypatch):
 
 def test_playoff_skipped_when_clear_winner(monkeypatch):
     """No playoff when the runner-up is outside the margin."""
-    monkeypatch.setattr(autotune, "_backend", lambda: "tpu")
     monkeypatch.setattr(autotune, "_engine_candidates", lambda cfg: ["jnp"])
     monkeypatch.setattr(
         autotune, "_modmul_candidates", lambda cfg: ["montgomery", "shoup"]
@@ -182,25 +188,31 @@ def test_playoff_skipped_when_clear_winner(monkeypatch):
     assert best.modmul == "shoup"
 
 
-def test_subprocess_timer_child():
-    """The isolated per-candidate measurement (the TPU path's subprocess
-    child) round-trips a config through JSON, times a real transform in a
-    fresh interpreter, and reports a sane median."""
-    ms = autotune._time_candidate_isolated(_cfg(1 << 8), seconds=0.05, reps=2)
+def test_inprocess_timer():
+    """Candidates are timed in this process (one process per device), on a
+    real transform, with a sane median."""
+    ms = autotune._time_candidate(_cfg(1 << 8), seconds=0.05, reps=2)
     assert 0 < ms < 60_000
 
 
-def test_subprocess_verify_winner(monkeypatch):
-    """The isolated winner-verification child compares base vs tuned
-    configs bit-exactly in a fresh interpreter (the TPU path)."""
-    monkeypatch.setattr(autotune, "_backend", lambda: "tpu")
+@pytest.mark.parametrize("engine", ["jnp", "mxu"])
+def test_verify_winner_inprocess(engine):
+    """Winner verification compares base vs tuned configs bit-exactly in
+    this process, on every backend."""
     base = _cfg(1 << 8, tune=True)
-    # identical math, different knob -> must pass
-    autotune._verify_winner(base, base.with_(tune=False, modmul="shoup"))
+    # identical math, different engine/knob -> must pass
+    autotune._verify_winner(base, base.with_(tune=False, engine=engine, modmul="shoup"))
     # a different generator is a different transform -> must fail
-    bad = NttConfig(TEST_MODULUS, 11, 1 << 8, tune=False)
+    bad = NttConfig(TEST_MODULUS, 11, 1 << 8, tune=False, engine=engine)
     with pytest.raises(AssertionError):
         autotune._verify_winner(base, bad)
+
+
+def test_engine_candidates_same_on_every_backend(monkeypatch):
+    for backend in ("cpu", "gpu"):
+        monkeypatch.setattr(autotune, "_backend", lambda b=backend: b)
+        assert autotune._engine_candidates(_cfg()) == ["jnp", "mxu"]
+        assert autotune._engine_candidates(_cfg(engine="mxu")) == ["mxu"]
 
 
 def test_cache_key_pins_constraints():
@@ -208,18 +220,17 @@ def test_cache_key_pins_constraints():
     different candidate set, so its cache entry must not collide with the
     unconstrained tune of the same (N, g, n, device)."""
     free = autotune.cache_key(_cfg(1 << 10))
-    pinned = autotune.cache_key(_cfg(1 << 10, engine="pallas"))
+    pinned = autotune.cache_key(_cfg(1 << 10, engine="mxu"))
     assert free != pinned
-    assert "engine=pallas" in pinned
-    # unconstrained keys keep the legacy bare format (shipped cache stays
-    # valid)
+    assert "engine=mxu" in pinned
+    # unconstrained keys keep the bare format
     assert free.count(":") == 4
     assert autotune.cache_key(_cfg(1 << 10, modmul="shoup")) != pinned
 
 
 def test_cpu_tune_does_not_write_repo_cache(tmp_path, monkeypatch):
-    """Host-CPU timings are machine-local noise; tune() must not dirty the
-    repo-shipped default cache on a non-tpu backend."""
+    """Only GPU timings may go to the default cache: tune() on the CPU
+    returns its winner but never writes there."""
     fake_default = tmp_path / "repo_cache.json"
     monkeypatch.setattr(autotune, "_DEFAULT_CACHE", fake_default)
     monkeypatch.delenv(autotune.CACHE_ENV, raising=False)
@@ -231,3 +242,18 @@ def test_cpu_tune_does_not_write_repo_cache(tmp_path, monkeypatch):
     explicit = tmp_path / "explicit.json"
     autotune.tune(_cfg(1 << 10, tune=True), cache_path=explicit)
     assert explicit.exists()
+
+
+def test_gpu_tune_writes_default_cache(tmp_path, monkeypatch):
+    """On a GPU backend the winner persists to the default cache."""
+    fake_default = tmp_path / "repo_cache.json"
+    monkeypatch.setattr(autotune, "_DEFAULT_CACHE", fake_default)
+    monkeypatch.delenv(autotune.CACHE_ENV, raising=False)
+    monkeypatch.setattr(autotune, "_backend", lambda: "gpu")
+    monkeypatch.setattr(autotune, "_device_kind", lambda: "NVIDIA_H100")
+    monkeypatch.setattr(autotune, "_time_candidate", lambda cfg, iters, reps=2: 1.0)
+    tuned = autotune.tune(_cfg(1 << 10, tune=True))
+    data = json.loads(fake_default.read_text())
+    [(key, entry)] = data.items()
+    assert ":gpu:NVIDIA_H100" in key
+    assert entry["knobs"]["engine"] == tuned.engine

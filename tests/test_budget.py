@@ -1,20 +1,13 @@
-"""2^30 readiness: memory budgets, plan validation, and a reduced-scale
-end-to-end run of the production composition (VERDICT round 1, task 9).
+"""2^30 readiness: memory budgets and plan validation, with the byte limit
+taken from the devices or passed explicitly.
 """
 
 import jax
-import numpy as np
 import pytest
 
 from sventt_tpu import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS, TEST_GENERATOR, TEST_MODULUS
-from sventt_tpu.field.limb import u64_from_numpy, u64_to_numpy
-from sventt_tpu.parallel import (
-    DistributedNTT,
-    distributed_memory_budget,
-    make_ntt_mesh,
-    validate_2p30,
-)
-from sventt_tpu.plan import NTT, NttConfig
+from sventt_tpu.parallel import distributed_memory_budget, validate_2p30
+from sventt_tpu.plan import NttConfig
 
 
 def _cfg30():
@@ -23,13 +16,16 @@ def _cfg30():
     )
 
 
+GIB = 1 << 30
+
+
 def test_2p30_fits_8_chips():
-    b = validate_2p30(8)
+    b = validate_2p30(8, hbm_bytes=16 * GIB)
     # 1 GiB shard + 1 GiB all-to-all transient + 1 GiB w-only twiddles
     assert b.coefficients == (1 << 30) // 8 * 8
     assert b.inter_step_twiddles == b.coefficients  # companion-free
     assert b.total < 4 * (1 << 30)
-    assert b.fits()
+    assert b.fits(16 * GIB)
 
 
 def test_2p30_two_chip_margin():
@@ -38,9 +34,11 @@ def test_2p30_two_chip_margin():
     b1 = distributed_memory_budget(
         _cfg30(), 2, enable_inverse=False, donate_input=True
     )
-    assert b1.fits()
+    assert b1.fits(int(15.5 * GIB))
     b2 = distributed_memory_budget(_cfg30(), 2, donate_input=False)
-    assert not b2.fits()
+    assert not b2.fits(int(15.5 * GIB))
+    with pytest.raises(ValueError, match="per device"):
+        validate_2p30(2, hbm_bytes=8 * GIB)
 
 
 def test_budget_rejects_bad_mesh():
@@ -59,7 +57,7 @@ def test_companion_threshold_reflected():
     assert big.inter_step_twiddles == big.coefficients
 
 
-@pytest.mark.parametrize("engine", ["jnp", "mxu", "pallas"])
+@pytest.mark.parametrize("engine", ["jnp", "mxu"])
 def test_leaf_table_bytes_matches_actual(engine):
     """_leaf_table_bytes must track the REAL per-leaf device bytes of
     PlanTables for every engine (round-4 VERDICT weak 4: the mxu branch
@@ -79,45 +77,45 @@ def test_leaf_table_bytes_matches_actual(engine):
         leaves = jax.tree_util.tree_leaves(obj)
         return sum(v.size * v.dtype.itemsize for v in leaves)
 
-    actual = sum(nbytes(t) for t in tables.leaf.values()) + sum(
-        nbytes(t) for t in tables.lane.values()
-    )
+    actual = sum(nbytes(t) for t in tables.leaf.values())
     est = _leaf_table_bytes(plan)
     assert est <= 2 * actual + 4096
     assert est >= 0.9 * actual
 
 
-def test_reduced_scale_production_composition(rng, monkeypatch):
-    """The 2^30 composition at reduced leaf scale: a distributed six-step
-    whose LOCAL shard plans are themselves Splits with fused pallas leaves
-    (the production 2^24+ shape -- round-1 VERDICT weak item 6), run on the
-    8-device CPU mesh in interpret mode and checked bit-exactly against the
-    single-chip wrapper.
 
-    MAX_FUSED is scaled down (256 -> 64) exactly like the leaf scale:
-    locally each 2^8-point sub-transform decomposes into a Split(16, 64)
-    with a lane-axis row leaf, mirroring how 2^15 locals decompose under
-    the real cap.
-    """
-    from sventt_tpu.ops import ntt_pallas
 
-    monkeypatch.setattr(ntt_pallas, "MAX_FUSED", 64)
-    n = 1 << 16
-    cfg = NttConfig(
-        TEST_MODULUS, TEST_GENERATOR, n, strategy="six_step",
-        n0=1 << 8, n1=1 << 8, engine="pallas",
-    )
-    mesh = make_ntt_mesh(8)
-    dntt = DistributedNTT(cfg, mesh, enable_inverse=False)
-    # the local plans must really contain Splits with pallas leaves
-    from sventt_tpu.plan.planner import Split
+def test_budget_refuses_device_without_memory_limit():
+    """The CPU backend reports no memory limit: the budget never assumes
+    a size for it, the caller passes the bytes."""
+    from sventt_tpu.parallel import device_bytes_limit
 
-    assert isinstance(dntt._col_plan, Split)
-    assert dntt._col_plan.row.engine == "pallas"
+    with pytest.raises(ValueError, match="hbm_bytes"):
+        device_bytes_limit()
+    with pytest.raises(ValueError, match="hbm_bytes"):
+        distributed_memory_budget(_cfg30(), 4).fits()
+    with pytest.raises(ValueError, match="hbm_bytes"):
+        validate_2p30(4)
+    assert validate_2p30(4, hbm_bytes=60 * GIB).fits(60 * GIB)
 
-    sntt = NTT(cfg, enable_inverse=False)
-    x = rng.integers(0, cfg.modulus, n, dtype=np.uint64)
-    xd = jax.device_put(u64_from_numpy(x), dntt.sharding())
-    fwd_d = u64_to_numpy(dntt.fc.normalize(dntt.compute_forward(xd)))
-    fwd_s = u64_to_numpy(sntt.fc.normalize(sntt.compute_forward(u64_from_numpy(x))))
-    np.testing.assert_array_equal(fwd_d, fwd_s)
+
+def test_budget_reads_device_memory_stats(monkeypatch):
+    """With devices that report ``bytes_limit`` (GPUs), the smallest one
+    is the budget's default."""
+    from sventt_tpu.parallel import budget as B
+
+    class Fake:
+        platform = "gpu"
+
+        def __init__(self, limit):
+            self.limit = limit
+
+        def memory_stats(self):
+            return {"bytes_limit": self.limit, "bytes_in_use": 0}
+
+    devs = [Fake(60 * GIB), Fake(59 * GIB)]
+    assert B.device_bytes_limit(devs) == 59 * GIB
+    monkeypatch.setattr(jax, "devices", lambda *a: devs)
+    b = distributed_memory_budget(_cfg30(), 4)
+    assert b.fits()  # 2^30 over 4 devices: a few GiB of 59
+    assert not distributed_memory_budget(_cfg30(), 4).fits(GIB)

@@ -115,7 +115,7 @@ def test_root_order_validation():
 
 
 def test_prime_search():
-    # TPU-native analogue of reference generate-parameters.py
+    # analogue of reference generate-parameters.py
     assert is_probable_prime(GOLDILOCKS_MODULUS)
     assert is_probable_prime(FLAGSHIP_MODULUS)
     assert not is_probable_prime((1 << 63) - 1)

@@ -72,3 +72,39 @@ def test_native_helpers():
     mod = Modulus(N, TEST_GENERATOR)
     assert lib.sventt_montgomery_inverse(N) == mod.montgomery_inverse
     assert lib.sventt_shoup_precompute(98765, N) == mod.shoup_precompute(98765)
+
+
+@pytest.mark.parametrize("log2m", [1, 6, 15])
+@pytest.mark.parametrize(
+    "modulus,generator",
+    [
+        (TEST_MODULUS, TEST_GENERATOR),
+        (0xFFFF_FC6E_8000_0001, 3),  # flagship
+        (0xFFFF_FFFF_0000_0001, 7),  # Goldilocks
+        ((1 << 16) + 1, 3),  # F4: a small modulus, Montgomery still exact
+    ],
+)
+def test_native_stage_major_matches_golden(rng, modulus, generator, log2m):
+    """The stage-major Montgomery oracle equals the Python golden model in
+    both directions; 2^15 crosses the size from which its loops run in
+    parallel threads."""
+    m = 1 << log2m
+    mod = Modulus(modulus, generator)
+    golden = GoldenNTT(m, mod)
+    x = rng.integers(0, modulus, m, dtype=np.uint64)
+    nat = native.golden_forward(x, modulus, generator)
+    assert [int(v) for v in nat] == golden.forward([int(v) for v in x])
+    back = native.golden_inverse(nat, modulus, generator)
+    assert [int(v) for v in back] == golden.inverse([int(v) for v in nat])
+    np.testing.assert_array_equal(back, x)
+
+
+def test_native_pointwise_mul(rng):
+    for N in (TEST_MODULUS, 0xFFFF_FC6E_8000_0001, (1 << 16) + 1):
+        a = rng.integers(0, N, 1 << 16, dtype=np.uint64)
+        b = rng.integers(0, N, 1 << 16, dtype=np.uint64)
+        got = native.pointwise_mul(a, b, N)
+        want = [int(u) * int(v) % N for u, v in zip(a, b)]
+        assert [int(v) for v in got] == want
+    with pytest.raises(ValueError):
+        native.pointwise_mul(a, b[:5], N)

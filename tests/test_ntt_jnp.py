@@ -113,17 +113,16 @@ def test_scale_extra_folding(rng):
 
 
 def test_chunked_leaf_paths_bit_exact(rng, monkeypatch):
-    """The VMEM-resident chunk executor (planner._jnp_chunked): both the
-    unrolled-slices and fori_loop variants must match the golden model
-    (thresholds scaled down so both trigger at test sizes)."""
+    """The chunk executor (planner._jnp_chunked / _jnp_mid_chunked) must
+    match the golden model with few and with many chunks per level
+    (the chunk size scaled down so both trigger at test sizes)."""
     import sventt_tpu.plan.planner as P
     from sventt_tpu import GoldenNTT, Modulus, TEST_GENERATOR, TEST_MODULUS
     from sventt_tpu.plan import NTT, NttConfig
 
     mod = Modulus(TEST_MODULUS, TEST_GENERATOR)
-    for max_unrolled in (64, 2):  # unrolled path, then fori_loop path
-        monkeypatch.setattr(P, "JNP_RESIDENT_ELEMS", 1 << 8)
-        monkeypatch.setattr(P, "MAX_UNROLLED_CHUNKS", max_unrolled)
+    for resident in (1 << 10, 1 << 7):  # 4 chunks per level, then 32
+        monkeypatch.setattr(P, "JNP_RESIDENT_ELEMS", resident)
         cfg = NttConfig(TEST_MODULUS, TEST_GENERATOR, 1 << 12, engine="jnp")
         ntt = NTT(cfg)
         x = rng.integers(0, cfg.modulus, cfg.n, dtype=np.uint64)

@@ -1,4 +1,4 @@
-"""MXU matrix-NTT engine vs the golden model (interpret mode on CPU).
+"""Matrix-NTT engine vs the golden model (plain XLA, compiled on the CPU).
 
 The int8 limb-plane matmul engine (ops/ntt_mxu.py) must be bit-exact
 against GoldenNTT in every orientation (leading / middle / lane axis),
@@ -60,9 +60,11 @@ def test_mxu_mid_and_lane_match_lead(rng):
     )
     got_mid = u64_to_numpy(ntt_mxu.mxu_ntt_mid(u64_from_numpy(xm), ft, fc))
     np.testing.assert_array_equal(got_mid, want)
+    # no batch axes: the transform runs along the last axis of (rows, m)
+    rows = xm.transpose(0, 2, 1).reshape(-1, m)
     got_lane = u64_to_numpy(
-        ntt_mxu.mxu_ntt_lane(u64_from_numpy(xm.transpose(0, 2, 1)), ft, fc)
-    ).transpose(0, 2, 1)
+        ntt_mxu.mxu_ntt_mid(u64_from_numpy(rows), ft, fc)
+    ).reshape(4, 2, m).transpose(0, 2, 1)
     np.testing.assert_array_equal(got_lane, want)
 
 
@@ -161,7 +163,7 @@ def test_s8_bias_covers_worst_case():
     (round-5 review: a fixed 2^26 bias silently wrapped at m = 1024)."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     for m in (512, 1024):
-        t = ntt_mxu.make_mxu_tables(mod, m, inverse=False)
+        t = ntt_mxu.make_mxu_tables(mod, m, inverse=False, scheme="s8")
         planes = np.asarray(t.planes).astype(np.int64)  # (8m, m)
         D = planes.reshape(ntt_mxu.NL_S8, m, m)
         # per (a, p): the minimal sum_j D*s over s in [-128, 127]
@@ -186,7 +188,7 @@ def test_mxu_1024_adversarial_plane_minimizer():
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
     fc = FieldConsts.from_modulus(mod, lazy=False)
     m = 1024
-    t = ntt_mxu.make_mxu_tables(mod, m, inverse=False)
+    t = ntt_mxu.make_mxu_tables(mod, m, inverse=False, scheme="s8")
     D = np.asarray(t.planes).astype(np.int64).reshape(ntt_mxu.NL_S8, m, m)
     # choose the (row, plane) with the most negative reachable sum: for a
     # fixed target plane t*, byte b of x_j pairs with the unique digit
@@ -246,7 +248,7 @@ def test_vectorized_digits_match_scalar_reference():
     """make_mxu_tables' vectorized digit extraction equals the scalar
     _balanced8 on a real table (both directions, 64-bit modulus)."""
     mod = Modulus(FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR)
-    t = ntt_mxu.make_mxu_tables(mod, 16, inverse=True)
+    t = ntt_mxu.make_mxu_tables(mod, 16, inverse=True, scheme="s8")
     planes = np.asarray(t.planes)  # (8*16, 16) int8
     # reconstruct each matrix entry from its digit planes and check the
     # scalar decomposition of that value round-trips to the same digits
@@ -274,9 +276,7 @@ def test_mxu_schemes_agree(rng, N, g):
     got_s8 = u64_to_numpy(ntt_mxu.mxu_ntt(u64_from_numpy(x), ts, fc))
     got_u7 = u64_to_numpy(ntt_mxu.mxu_ntt(u64_from_numpy(x), tu, fc))
     np.testing.assert_array_equal(got_s8, got_u7)
-    # banded variant: same digits as one block-banded matmul (truthfully
-    # measured SLOWER than s8 -- experimental/r5_banded_ab.py -- but kept
-    # as a raceable, bit-exact A/B scheme)
+    # banded variant: the same digits as one block-banded matmul
     tb = ntt_mxu.make_mxu_tables(mod, m, inverse=False, scheme="s8b")
     assert tb.planes.shape == (15 * m, ntt_mxu.NL_S8 * m)
     got_b = u64_to_numpy(ntt_mxu.mxu_ntt(u64_from_numpy(x), tb, fc))

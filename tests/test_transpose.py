@@ -1,11 +1,11 @@
-"""Transpose strategies: correctness on CPU (pallas in interpret mode)."""
+"""Transposes: XLA's transpose on both limb planes, any batch dims."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from sventt_tpu.field.limb import U64
-from sventt_tpu.ops.transpose import transpose_pallas, transpose_u64, transpose_xla
+from sventt_tpu.ops.transpose import transpose01_u64, transpose_xla
 
 
 def test_xla_transpose_with_batch(rng):
@@ -14,85 +14,37 @@ def test_xla_transpose_with_batch(rng):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(x).transpose(1, 0, 2))
 
 
-@pytest.mark.parametrize("shape,block", [((16, 32), 8), ((64, 16), 16)])
-def test_pallas_transpose(rng, shape, block):
-    x = jnp.asarray(rng.integers(0, 1 << 32, shape, dtype=np.uint32))
-    got = transpose_pallas(x, block, block)
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(x).T)
-
-
-def test_transpose_u64_strategies(rng):
-    hi = jnp.asarray(rng.integers(0, 1 << 32, (16, 16), dtype=np.uint32))
-    lo = jnp.asarray(rng.integers(0, 1 << 32, (16, 16), dtype=np.uint32))
-    a = transpose_u64(U64(hi, lo), "xla")
-    b = transpose_u64(U64(hi, lo), "pallas", br=8, bc=8)
-    np.testing.assert_array_equal(np.asarray(a.hi), np.asarray(b.hi))
-    np.testing.assert_array_equal(np.asarray(a.lo), np.asarray(b.lo))
-
-
-def test_transpose_pallas_rejects_indivisible_shapes():
-    """A floor-divided grid would silently drop the remainder rows/cols
-    (round-2 review finding); indivisible shapes must raise."""
-    import jax.numpy as jnp
-    import pytest
-
-    from sventt_tpu.ops.transpose import transpose_pallas
-
-    x = jnp.zeros((300, 256), jnp.uint32)
-    with pytest.raises(ValueError, match="not divisible"):
-        transpose_pallas(x, br=256, bc=256)
-
-
 def test_transpose01_u64_strategy_dispatch(rng):
-    """transpose01_u64 (the transform paths' entry point, NttConfig.transpose):
-    pallas on block-divisible 2-D shapes, XLA fallback on 3-D / indivisible."""
-    from sventt_tpu.ops.transpose import transpose01_u64
-
+    """transpose01_u64 (the transform paths' entry point) swaps the two
+    leading axes of both planes, 2-D, 3-D and odd shapes alike."""
     hi = jnp.asarray(rng.integers(0, 1 << 32, (256, 512), dtype=np.uint32))
     lo = jnp.asarray(rng.integers(0, 1 << 32, (256, 512), dtype=np.uint32))
-    want_hi = np.asarray(hi).T
-    for strategy in (None, "auto", "xla", "pallas"):
-        got = transpose01_u64(U64(hi, lo), strategy)
-        np.testing.assert_array_equal(np.asarray(got.hi), want_hi)
-    # 3-D and indivisible shapes silently take the XLA path
+    got = transpose01_u64(U64(hi, lo))
+    np.testing.assert_array_equal(np.asarray(got.hi), np.asarray(hi).T)
+    np.testing.assert_array_equal(np.asarray(got.lo), np.asarray(lo).T)
     hi3 = hi.reshape(256, 256, 2)
-    got = transpose01_u64(U64(hi3, hi3), "pallas")
+    got = transpose01_u64(U64(hi3, hi3))
     np.testing.assert_array_equal(
         np.asarray(got.hi), np.asarray(hi3).transpose(1, 0, 2)
     )
-    got = transpose01_u64(U64(hi[:100], lo[:100]), "pallas")
-    np.testing.assert_array_equal(np.asarray(got.hi), want_hi[:, :100])
+    got = transpose01_u64(U64(hi[:100], lo[:100]))
+    np.testing.assert_array_equal(np.asarray(got.hi), np.asarray(hi).T[:, :100])
 
 
 def test_transpose_pallas_demoted_from_config():
-    """The blocked pallas transpose lost to XLA at every measured shape
-    (round-5 sweep) and is benchmarks-only: the public config rejects it
-    with a pointer, while the ops-level strategy functions keep working
-    as the measurement corpus."""
-    import pytest
-
+    """XLA's transpose is the only one: the public config has no transpose
+    knob any more, and an old call site fails loudly."""
     from sventt_tpu.field.modulus import TEST_GENERATOR, TEST_MODULUS
     from sventt_tpu.plan import NttConfig
 
-    with pytest.raises(ValueError, match="bench_transpose"):
-        NttConfig(
-            TEST_MODULUS, TEST_GENERATOR, 1 << 10, transpose="pallas"
-        )
+    with pytest.raises(TypeError, match="transpose"):
+        NttConfig(TEST_MODULUS, TEST_GENERATOR, 1 << 10, transpose="pallas")
 
 
-def test_transpose_pallas_pair_rect(rng):
-    """The single pair-kernel (both limb planes, rectangular tiles) is
-    exact -- the round-5 replacement for two per-plane kernels."""
-    import numpy as np
-
-    from sventt_tpu.field.limb import U64
-    from sventt_tpu.ops.transpose import _transpose_pallas_pair
-
-    x = U64(
-        rng.integers(0, 1 << 32, (64, 512), dtype=np.uint32),
-        rng.integers(0, 1 << 32, (64, 512), dtype=np.uint32),
-    )
-    for br, bc in [(64, 512), (8, 512), (64, 256), (32, 128)]:
-        oh, ol = _transpose_pallas_pair(x.hi, x.lo, br, bc)
-        np.testing.assert_array_equal(np.asarray(oh), np.asarray(x.hi).T)
-        np.testing.assert_array_equal(np.asarray(ol), np.asarray(x.lo).T)
+@pytest.mark.parametrize("shape", [(4, 8), (8, 4, 3), (2, 16, 2, 2)])
+def test_transpose01_is_an_involution(rng, shape):
+    hi = jnp.asarray(rng.integers(0, 1 << 32, shape, dtype=np.uint32))
+    x = U64(hi, hi ^ jnp.uint32(0xFFFF))
+    y = transpose01_u64(transpose01_u64(x))
+    np.testing.assert_array_equal(np.asarray(y.hi), np.asarray(x.hi))
+    np.testing.assert_array_equal(np.asarray(y.lo), np.asarray(x.lo))

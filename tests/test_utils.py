@@ -50,7 +50,7 @@ def test_batched_sixstep(rng):
 def test_phase_breakdown_walks_the_plan():
     """phase_breakdown reports one row phase per split level plus the
     final column leaf and the whole transform, at the plan's own shapes
-    (the PERF_NOTES '2^24 phase split' methodology, packaged)."""
+    (the '2^24 phase split' methodology, packaged)."""
     from sventt_tpu.plan import NTT, NttConfig
     from sventt_tpu.utils import phase_breakdown
 
@@ -67,7 +67,7 @@ def test_phase_breakdown_walks_the_plan():
     # non-jnp rows fall back to timing the inter-step twiddle multiply
     ntt_p = NTT(
         NttConfig(
-            TEST_MODULUS, TEST_GENERATOR, 1 << 10, engine="pallas",
+            TEST_MODULUS, TEST_GENERATOR, 1 << 10, engine="mxu",
             strategy="six_step", n0=1 << 5, n1=1 << 5,
         ),
         enable_inverse=False,

@@ -177,40 +177,15 @@ def test_solinas_requires_sparse_high():
         NttConfig(TEST_MODULUS, TEST_GENERATOR, 64, modmul="solinas")
 
 
-def test_solinas_pallas_engine_matches_golden(rng):
-    """Solinas through the FUSED PALLAS engine (2-channel companion-free
-    stage tables, interpret mode on CPU): bit-exact vs golden, roundtrip,
-    at an iterative size and a six-step size (lane kernel prologue)."""
-    from sventt_tpu import FLAGSHIP_GENERATOR, FLAGSHIP_MODULUS
-
-    cfg = NttConfig(
-        FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 256,
-        modmul="solinas", engine="pallas",
-    )
-    ntt = NTT(cfg)
-    N = cfg.modulus
-    x = rng.integers(0, N, size=cfg.n, dtype=np.uint64)
-    fwd = ntt.forward_numpy(x)
-    golden = GoldenNTT(cfg.n, cfg.mod)
-    assert [int(v) for v in fwd] == golden.forward([int(v) for v in x])
-    assert (ntt.inverse_numpy(fwd) == x).all()
-    cfg6 = NttConfig(
-        FLAGSHIP_MODULUS, FLAGSHIP_GENERATOR, 1 << 14,
-        modmul="solinas", engine="pallas",
-    )
-    ntt6 = NTT(cfg6)
-    x6 = rng.integers(0, N, size=cfg6.n, dtype=np.uint64)
-    ref = NTT(cfg6.with_(modmul="montgomery"))
-    np.testing.assert_array_equal(ntt6.forward_numpy(x6), ref.forward_numpy(x6))
-    assert (ntt6.inverse_numpy(ntt6.forward_numpy(x6)) == x6).all()
-
-
 def test_describe_shows_execution_paths():
-    cfg = NttConfig(TEST_MODULUS, TEST_GENERATOR, 1 << 17, engine="pallas")
+    cfg = NttConfig(TEST_MODULUS, TEST_GENERATOR, 1 << 20, engine="mxu")
     d = NTT(cfg, enable_inverse=False).describe()
-    assert "lane-axis pallas" in d  # top level: no transposes
+    assert d.count("in-place mxu") == 2  # every level: axis 1, no transposes
+    assert "transposed" not in d
     db = NTT(cfg, enable_inverse=False).describe(batched=True)
-    assert "mid-axis pallas" in db  # batched: middle-axis kernels
+    assert db == d
+    dj = NTT(cfg.with_(engine="jnp"), enable_inverse=False).describe()
+    assert "mid-axis jnp" in dj
 
 
 def test_describe_descends_into_split_row():
